@@ -1,0 +1,77 @@
+"""``repro_torch`` stands alone: every module imports with jax blocked, and
+no file of the port (nor ``chip_smoke.py``) imports jax or the JAX
+package."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _modules():
+    names = ["repro_torch"]
+    for m in pkgutil.walk_packages([str(PKG)], prefix="repro_torch."):
+        names.append(m.name)
+    return names
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert "repro_torch.kernels.chunked_paged_attn" in mods
+    assert "repro_torch.launch.serve" in mods
+    code = ("import importlib, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            f"for name in {mods!r}:\n"
+            "    importlib.import_module(name)\n"
+            "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
+            "print('ok', len(sys.modules))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_reference_imports(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+            f"{path.relative_to(ROOT)} imports {name}"
+
+
+def test_serves_on_cpu_without_jax():
+    """The port's serving CLI runs end to end with jax and the JAX package
+    blocked (model backend, plain kernel versions on the CPU)."""
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "sys.argv = ['serve', '--backend', 'model', '--torch-device',\n"
+            "            'cpu', '--requests', '3', '--rate', '8']\n"
+            "runpy.run_module('repro_torch.launch.serve',\n"
+            "                 run_name='__main__')\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "requests: 3" in out.stdout
