@@ -10,8 +10,9 @@ Phases, in order (any failed check raises and the script exits non-zero):
    with nvcc for sm_90a (one compile per source, all at once);
 3. kernel phase: each kernel's wrapper on CUDA tensors against its plain
    PyTorch version on the same inputs, at the serving path's shapes, with
-   times (CUDA events) under both row tilings and the card's least time for
-   the same work;
+   times (CUDA events; the paged kernel under both row tilings, the
+   block-diffusion kernel beside ``scaled_dot_product_attention``) and the
+   card's least time for the same work;
 4. model phase: one ``decode_step_paged`` dispatch of SDAR-8B at full width
    and depth in bf16, through the kernel and through the plain version, on
    the same weights and pool, held at limits that a control run (the
@@ -20,11 +21,18 @@ Phases, in order (any failed check raises and the script exits non-zero):
    and at 2048 tokens, timed through the kernel and the plain version, and
    split by kernel with ``torch.profiler``: the device's busy share of the
    wall time and the paged kernel's share of the device time;
-6. serving phase (the main path): SDAR-8B (36 layers, d_model 4096, bf16,
+6. prefill model phase: one wave ``prefill_paged`` dispatch of SDAR-8B at
+   full width and depth in bf16 (shape (e)), through the block-diffusion
+   kernel and through its plain version, on the same weights and pool:
+   head logits, conf, tok and the pages written, held at limits that a
+   control run (the kernel's output skewed by ``CONTROL_SKEW``) must break,
+   then where that dispatch's time goes, as in the profile phase;
+7. serving phase (the main path): SDAR-8B (36 layers, d_model 4096, bf16,
    seeded random weights drawn on the card) served by the paged
    ``ModelBackend`` through ``ServingEngine`` — an elastic run of 8
-   requests and a shorter AR run — with the kernels' launch counts set to 0
-   before each run and read after it.
+   requests with chunked prefill, a shorter AR run, and the elastic run's
+   requests again with wave prefill — with the kernels' launch counts set
+   to 0 before each run and read after it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repository
@@ -112,6 +120,101 @@ def bound(B, c, H, KVH, D, ps, dtype, ctx):
     ops = 4.0 * live * c * H * D
     t_b, t_o = nbytes / H100_HBM_BPS, ops / PEAK_FLOPS[dtype]
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+# The block-diffusion kernel at the wave-prefill shapes.  (e) is the SDAR-8B
+# wave of 8 prompts padded to T 512 (one batch-padding row, lengths 0);
+# (h) is the SMOKE config the CLI serves (head_dim 8, fp32, block 8) at
+# T 48, which is not a power of two.
+BD_SHAPES = [
+    # name, B, T, H, KVH, D, block_size, dtype, lengths
+    ("e_wave_sdar8b", 8, 512, 32, 8, 128, 32, "bfloat16",
+     [512, 0, 130, 257, 384, 449, 200, 511]),
+    ("f_long_sdar8b", 2, 2048, 32, 8, 128, 32, "bfloat16", [2048, 1500]),
+    ("g_causal_bs1", 4, 256, 32, 8, 128, 1, "bfloat16", [256, 0, 100, 17]),
+    ("h_smoke_fp32_d8", 3, 48, 8, 2, 8, 8, "float32", [48, 0, 5]),
+]
+
+
+def bd_visible(T, bs, lengths) -> int:
+    """Σ_b Σ_t of the keys query t of row b sees: min(len_b, (t//bs+1)·bs)."""
+    return sum(min(min(n, T), (t // bs + 1) * bs)
+               for n in lengths for t in range(T))
+
+
+def bd_bound(B, T, H, KVH, D, bs, dtype, lengths):
+    """The card's least time for one block-diffusion call: the larger of the
+    bytes it must move over HBM bandwidth — q of the rows that see a key,
+    the live K/V rows (positions < len_b), lengths and the whole output,
+    each once — and its 4·D·H·Σ visible operations over the peak rate for
+    the input type.  Counts this call's data."""
+    el = 2 if dtype == "bfloat16" else 4
+    live_rows = sum(1 for n in lengths if n > 0)
+    nbytes = (live_rows * T * H * D * el
+              + sum(min(n, T) for n in lengths) * KVH * D * 2 * el
+              + B * 4 + B * T * H * D * el)
+    ops = 4.0 * D * H * bd_visible(T, bs, lengths)
+    t_b, t_o = nbytes / H100_HBM_BPS, ops / PEAK_FLOPS[dtype]
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def bd_kernel_phase(seed: int) -> list[dict]:
+    """The block-diffusion kernel against its plain version at BD_SHAPES,
+    with its time, the plain version's, one ``scaled_dot_product_attention``
+    call's on the same function (rows with lengths >= 1 only: it gives NaN
+    on an all-masked row; timed, never on the path) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import block_diffusion_attn as bda
+
+    rows = []
+    for name, B, T, H, KVH, D, bs, dtype, lens in BD_SHAPES:
+        td = getattr(torch, dtype)
+        g = torch.Generator(device=DEVICE).manual_seed(seed)
+        q = torch.randn((B, T, H, D), generator=g, device=DEVICE).to(td)
+        k = torch.randn((B, T, KVH, D), generator=g, device=DEVICE).to(td)
+        v = torch.randn((B, T, KVH, D), generator=g, device=DEVICE).to(td)
+        ln = torch.as_tensor(lens, dtype=torch.int32, device=DEVICE)
+        out = bda.block_diffusion_attention_kernel(q, k, v, ln,
+                                                   block_size=bs)
+        torch.cuda.synchronize()
+        want = bda.block_diffusion_ref(q, k, v, ln, block_size=bs)
+        tol = BF16_TOL if dtype == "bfloat16" else FP32_TOL
+        err = float((out.float() - want.float()).abs().max())
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{name}: non-finite kernel output")
+        for i in [i for i, n in enumerate(lens) if n == 0]:
+            if not torch.all(out[i] == 0):
+                raise AssertionError(f"{name}: lengths-0 row {i} is not 0")
+        ms = time_ms(lambda: bda.block_diffusion_attention_kernel(
+            q, k, v, ln, block_size=bs))
+        plain_ms = time_ms(lambda: bda.block_diffusion_ref(
+            q, k, v, ln, block_size=bs))
+        live = [i for i, n in enumerate(lens) if n > 0]
+        pos = torch.arange(T, device=DEVICE)
+        blk = torch.div(pos, bs, rounding_mode="floor")
+        mask = (blk[None, :] <= blk[:, None])[None, None] & \
+            (pos[None, :] < ln[live][:, None])[:, None, None, :]
+        qs, ks, vs = (t[live].transpose(1, 2).contiguous()
+                      for t in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True))
+        b_ms, b_by = bd_bound(B, T, H, KVH, D, bs, dtype, lens)
+        row = {"shape": name, "B": B, "T": T, "H": H, "KVH": KVH, "D": D,
+               "block_size": bs, "dtype": dtype, "lengths": lens,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "live_gflop": 4.0 * D * H * bd_visible(T, bs, lens) / 1e9}
+        rows.append(row)
+        log(f"kernel {name}: max_abs_err {err:.3e} | kernel {ms:.4f} ms  "
+            f"plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound "
+            f"{b_ms:.4f} ms ({b_by}); {row['live_gflop']:.3f} live GFLOP "
+            f"= {row['live_gflop'] / ms:.2f} TFLOP/s")
+        del q, k, v, out, want, qs, ks, vs, mask
+    return rows
 
 
 def kernel_phase(seed: int) -> list[dict]:
@@ -336,12 +439,71 @@ def model_phase(model, params, pool, seed: int) -> dict:
 # profile phase
 # ---------------------------------------------------------------------------
 
-def profile_phase(model, params, pool, seed: int) -> list[dict]:
-    """Where one decode dispatch's time goes: wall per dispatch (host clock
-    around ``torch.cuda.synchronize``) through the kernel and the plain
-    version, then ``torch.profiler`` over 3 kernel-path dispatches."""
+def profile_dispatch(dispatch, kernel: str, iters: int, n: int) -> dict:
+    """Where one dispatch's time goes: wall per dispatch (host clock around
+    ``torch.cuda.synchronize``, median of ``iters``) through the kernel,
+    the plain version and the kernel again, then ``torch.profiler`` over
+    ``n`` kernel-path dispatches: device time, busy share of the wall, and
+    the share of the device kernel whose name holds ``kernel``."""
     import torch
 
+    def wall_ms(impl):
+        dispatch(impl)
+        ts = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            dispatch(impl)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    walls = {"kernel": [wall_ms("kernel")], "ref": [wall_ms("ref")]}
+    walls["kernel"].append(wall_ms("kernel"))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            dispatch("kernel")
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = sorted(((e.key, e.self_device_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    busy = sum(t for _, t, _ in kern)
+    mine = sum(t for k, t, _ in kern if kernel in k)
+    if not mine > 0:
+        raise AssertionError(f"profile: {kernel} shows no device time")
+    return {"wall_ms_kernel": walls["kernel"], "wall_ms_plain": walls["ref"],
+            "profiled_dispatches": n,
+            "wall_ms_profiled": wall_us / n / 1e3,
+            "device_ms_per_dispatch": busy / n / 1e3,
+            "device_busy_share": busy / wall_us,
+            "kernel_ms_per_dispatch": mine / n / 1e3,
+            "kernel_share_of_device": mine / max(busy, 1e-9),
+            "device_kernels_per_dispatch": sum(c for *_, c in kern) / n,
+            "top": [{"name": k[:90], "ms_per_dispatch": t / n / 1e3,
+                     "calls_per_dispatch": c / n} for k, t, c in kern[:8]]}
+
+
+def log_profile(what: str, row: dict, kernel: str):
+    log(f"profile {what}: wall ms kernel {row['wall_ms_kernel'][0]:.2f}, "
+        f"{row['wall_ms_kernel'][1]:.2f}, plain {row['wall_ms_plain'][0]:.2f};"
+        f" profiled wall {row['wall_ms_profiled']:.2f} ms, device "
+        f"{row['device_ms_per_dispatch']:.2f} ms (busy share "
+        f"{row['device_busy_share']:.3f}) in "
+        f"{row['device_kernels_per_dispatch']:.0f} kernels; {kernel} kernel "
+        f"{row['kernel_ms_per_dispatch']:.3f} ms (share of device "
+        f"{row['kernel_share_of_device']:.3f})")
+    for r in row["top"]:
+        log(f"  {r['ms_per_dispatch']:8.3f} ms {r['calls_per_dispatch']:6.1f}x"
+            f"  {r['name']}")
+
+
+def profile_phase(model, params, pool, seed: int) -> list[dict]:
+    """Where one decode dispatch's time goes, at every context of
+    PROFILE_CTX (:func:`profile_dispatch`, 3 profiled dispatches)."""
     cache, tables = pool
     out = []
     for ctx in PROFILE_CTX:
@@ -353,81 +515,191 @@ def profile_phase(model, params, pool, seed: int) -> list[dict]:
                 impl=impl)
             return conf.cpu(), tok.cpu()
 
-        def wall_ms(impl, iters=5):
-            dispatch(impl)
-            ts = []
-            for _ in range(iters):
-                t0 = time.perf_counter()
-                dispatch(impl)
-                torch.cuda.synchronize()
-                ts.append((time.perf_counter() - t0) * 1e3)
-            return statistics.median(ts)
-
-        walls = {"kernel": [wall_ms("kernel")], "ref": [wall_ms("ref")]}
-        walls["kernel"].append(wall_ms("kernel"))
-        n = 3
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                dispatch("kernel")
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kern = sorted(((e.key, e.self_device_time_total, e.count)
-                       for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA),
-                      key=lambda r: -r[1])
-        busy = sum(t for _, t, _ in kern)
-        paged = sum(t for k, t, _ in kern if "paged_chunk_attn" in k)
         row = {"B": MODEL_B, "c": MODEL_C, "ctx": ctx,
-               "wall_ms_kernel": walls["kernel"], "wall_ms_plain": walls["ref"],
-               "profiled_dispatches": n,
-               "wall_ms_profiled": wall_us / n / 1e3,
-               "device_ms_per_dispatch": busy / n / 1e3,
-               "device_busy_share": busy / wall_us,
-               "paged_kernel_ms_per_dispatch": paged / n / 1e3,
-               "paged_kernel_share_of_device": paged / max(busy, 1e-9),
-               "device_kernels_per_dispatch": sum(c for *_, c in kern) / n,
-               "top": [{"name": k[:90], "ms_per_dispatch": t / n / 1e3,
-                        "calls_per_dispatch": c / n}
-                       for k, t, c in kern[:8]]}
-        if not paged > 0:
-            raise AssertionError(f"profile ctx {ctx}: the paged kernel shows "
-                                 f"no device time")
+               **profile_dispatch(dispatch, "paged_chunk_attn", 5, 3)}
         out.append(row)
-        log(f"profile ctx {ctx} (B {MODEL_B}, c {MODEL_C}): wall ms kernel "
-            f"{walls['kernel'][0]:.2f}, {walls['kernel'][1]:.2f}, plain "
-            f"{walls['ref'][0]:.2f}; profiled wall "
-            f"{row['wall_ms_profiled']:.2f} ms, device "
-            f"{row['device_ms_per_dispatch']:.2f} ms (busy share "
-            f"{row['device_busy_share']:.3f}) in "
-            f"{row['device_kernels_per_dispatch']:.0f} kernels; paged kernel "
-            f"{row['paged_kernel_ms_per_dispatch']:.3f} ms (share of device "
-            f"{row['paged_kernel_share_of_device']:.3f})")
-        for r in row["top"]:
-            log(f"  {r['ms_per_dispatch']:8.3f} ms {r['calls_per_dispatch']:6.1f}x"
-                f"  {r['name']}")
+        log_profile(f"ctx {ctx} (B {MODEL_B}, c {MODEL_C})", row, "paged")
     return out
+
+
+# ---------------------------------------------------------------------------
+# prefill model phase
+# ---------------------------------------------------------------------------
+
+# One wave prefill_paged dispatch at shape (e), kernel path vs plain path.
+# Readings (live rows, lengths >= 1):
+#   logits_rel      max |logits - logits_plain| / std(logits_plain)
+#   conf_rel        max |conf - conf_plain| / conf_plain
+#   pages_rel       max |pages - pages_plain| / std(pages_plain) over every
+#                   K/V row the dispatch wrote (36 layers)
+#   tokens_differ   argmax tokens that differ (of 7)
+# A control run, the kernel's output scaled by 1 + CONTROL_SKEW in every
+# layer, must break the PREFILL_CONTROL_BREAKS limits.  Both readings are
+# printed every run.  The limits sit between the two readings of the first
+# H100 run (kernel 0.090 / 0.032 / 0.117, control 0.288 / 0.064 / 0.334);
+# the token count is a reading only (7 tokens, none differed in either).
+PREFILL_LIMITS = {"logits_rel": 0.18, "conf_rel": 0.048, "pages_rel": 0.22}
+PREFILL_CONTROL_BREAKS = ("logits_rel", "conf_rel", "pages_rel")
+
+
+def prefill_model_phase(model, params, pool, seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    import repro_torch.models.transformer as tfm
+    from repro_torch.kernels.ops import softmax_confidence_device
+
+    cfg = model.cfg
+    cache, tables = pool
+    name, B, T, *_, lens = BD_SHAPES[0]
+    rng = np.random.default_rng(seed + 7)
+    toks = np.zeros((B, T), np.int64)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(4, cfg.vocab_size - 8, n)
+    toks = torch.as_tensor(toks, device=DEVICE)
+    ln = torch.as_tensor(lens, dtype=torch.int32, device=DEVICE)
+    live = [i for i, n in enumerate(lens) if n > 0]
+    L, P, ps, KVH, hd = cache["k_pages"].shape
+    pos = torch.arange(T, device=DEVICE)[None].expand(B, T)
+    dest = tfm._page_dest(tables, pos, pos < ln[:, None].long(), ps, P)
+    dest = dest.reshape(-1)
+    dest = dest[dest < P * ps]
+
+    def dispatch(impl):
+        logits, _ = model.prefill_paged(params, cache, toks, ln, tables,
+                                        head_mode="logits", impl=impl)
+        conf, tok = softmax_confidence_device(logits)
+        written = torch.cat([cache[n].view(L, P * ps, KVH, hd)[:, dest]
+                             for n in ("k_pages", "v_pages")]).float()
+        for t in (logits, written):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"prefill: non-finite output ({impl})")
+        return conf[live], tok[live], logits[live], written
+
+    cr, tr, lr, wr = dispatch("ref")
+    kernel = dispatch("kernel")
+    (cs, ts), _ = model.prefill_paged(params, cache, toks, ln, tables,
+                                      head_mode="sample")
+    if not torch.equal(ts[live], kernel[1]):
+        raise AssertionError("prefill head_mode 'sample' disagrees with "
+                             "'logits' + sampling")
+    exact = tfm.block_diffusion_attention
+
+    def skewed(*a, **k):
+        return exact(*a, **k) * (1 + CONTROL_SKEW)
+
+    tfm.block_diffusion_attention = skewed
+    try:
+        control = dispatch("kernel")
+    finally:
+        tfm.block_diffusion_attention = exact
+    torch.cuda.synchronize()
+    lr_std, wr_std = float(lr.std()), float(wr.std())
+
+    def readings(conf, tok, logits, written):
+        return {"logits_rel": float((logits - lr).abs().max()) / lr_std,
+                "conf_rel": float(((conf - cr).abs() / cr).max()),
+                "pages_rel": float((written - wr).abs().max()) / wr_std,
+                "tokens_differ": int((tok != tr).sum())}
+
+    sound, ctl = readings(*kernel), readings(*control)
+    top2 = lr.topk(2, dim=-1).values
+
+    def head_only(impl):
+        (conf, tok), _ = model.prefill_paged(params, cache, toks, ln, tables,
+                                             head_mode="sample", impl=impl)
+        return conf.cpu(), tok.cpu()
+
+    prof = profile_dispatch(head_only, "block_diffusion_attn", 3, 2)
+    log_profile(f"prefill_paged {name}", prof, "block-diffusion")
+    res = {"shape": name, "B": B, "T": T, "lengths": lens,
+           "live_rows": len(live), "written_kv_rows": int(dest.numel()),
+           "logits_std_plain": lr_std, "pages_std_plain": wr_std,
+           "min_top2_gap_plain": float((top2[:, 0] - top2[:, 1]).min()),
+           "kernel_vs_plain": sound, "control_skew": CONTROL_SKEW,
+           "control_vs_plain": ctl, "limits": PREFILL_LIMITS,
+           "control_breaks": PREFILL_CONTROL_BREAKS, "profile": prof}
+    log(f"model prefill_paged ({name}: B {B}, T {T}, lengths {lens}, "
+        f"{cfg.n_layers} layers, {cfg.compute_dtype}): logits std "
+        f"{lr_std:.4f}, pages std {wr_std:.4f}, {res['written_kv_rows']} "
+        f"K/V rows written a layer; least top-1/top-2 gap (plain) "
+        f"{res['min_top2_gap_plain']:.4f}")
+    for key in sound:
+        log(f"  {key}: kernel {sound[key]}  control (out x "
+            f"{1 + CONTROL_SKEW}) {ctl[key]}  limit "
+            f"{PREFILL_LIMITS.get(key, 'none (a reading)')}")
+    for key, lim in PREFILL_LIMITS.items():
+        if not sound[key] < lim:
+            raise AssertionError(f"prefill: kernel path {key} {sound[key]} "
+                                 f">= {lim}")
+        if key in PREFILL_CONTROL_BREAKS and not ctl[key] >= lim:
+            raise AssertionError(f"prefill: the control run's {key} "
+                                 f"{ctl[key]} stays under {lim}, so this "
+                                 f"limit cannot see a {CONTROL_SKEW:.0%} "
+                                 f"error")
+    return res
 
 
 # ---------------------------------------------------------------------------
 # serving phase (the main path)
 # ---------------------------------------------------------------------------
 
+def record_gaps(be, gaps: dict):
+    """While a diffusion run serves, note for every committed token the
+    top-1/top-2 logit gap of the decode dispatch that committed it:
+    ``gaps[id(state)][output index] = gap``.  Hooks the decode sampler and
+    the batched commit; undo with the returned function."""
+    import numpy as np
+
+    import repro_torch.models.transformer as tfm
+    import repro_torch.serving.backends as backends
+
+    sampler, commit = tfm.softmax_confidence_device, backends.batch_apply_step
+    last = {}
+
+    def sample(logits):
+        if logits.dim() == 3:                 # decode [B, c, V]
+            top2 = logits.topk(2, dim=-1).values
+            last["gap"] = top2[..., 0] - top2[..., 1]
+        return sampler(logits)
+
+    def apply(states, conf, tok, valid, cai):
+        frozen = [st.frozen for st in states]
+        mask, n_adv = commit(states, conf, tok, valid, cai)
+        gap = last.pop("gap").float().cpu().numpy()
+        for i, st in enumerate(states):
+            row = gaps.setdefault(id(st), {})
+            for j in np.nonzero(mask[i])[0]:
+                row[frozen[i] + int(j)] = float(gap[i, j])
+        return mask, n_adv
+
+    tfm.softmax_confidence_device = sample
+    backends.batch_apply_step = apply
+
+    def undo():
+        tfm.softmax_confidence_device = sampler
+        backends.batch_apply_step = commit
+    return undo
+
+
 def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
+    """One serving run: ``mode`` "elastic" (chunked prefill), "ar", or
+    "wave" (the elastic run with wave prefill)."""
     import torch
 
     from repro_torch.core.latency_model import CPU_HOST, AnalyticDeviceModel
     from repro_torch.core.scheduler import ElasticScheduler, FixedScheduler
+    from repro_torch.kernels import block_diffusion_attn as bda
     from repro_torch.kernels import chunked_paged_attn as cpa
     from repro_torch.serving import DATASETS, ModelBackend, ServingEngine
 
     cfg = model.cfg
+    wave = mode == "wave"
     be = ModelBackend(model, params, n_slots=8, max_len=max_len,
                       decode_mode="ar" if mode == "ar" else "elastic",
-                      cache_dtype=torch.bfloat16, device=DEVICE)
-    if mode == "elastic":       # as launch/serve.py builds it
+                      cache_dtype=torch.bfloat16, device=DEVICE,
+                      prefill_mode="wave" if wave else "chunked")
+    if mode in ("elastic", "wave"):   # as launch/serve.py builds it
         sched = ElasticScheduler.from_analytic(
             AnalyticDeviceModel(cfg, CPU_HOST),
             prior_tokens_per_step=DATASETS["sharegpt"].tokens_per_step_bd32,
@@ -442,29 +714,38 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
             return fn(params, cache, tokens, *a, **k)
         return wrapped
 
+    prefill_fn = "prefill_paged" if wave else "prefill_chunk_paged"
     model.decode_step_paged = record("decode", type(model).decode_step_paged
                                      .__get__(model))
-    model.prefill_chunk_paged = record("prefill", type(model)
-                                       .prefill_chunk_paged.__get__(model))
-    outs = {}
+    setattr(model, prefill_fn, record("prefill", getattr(type(model),
+                                                         prefill_fn)
+                                      .__get__(model)))
+    outs, gaps, gap_of = {}, {}, {}
     release = be.release
 
     def spy(rid):
-        outs[rid] = be.state(rid).output_tokens
+        st = be.state(rid)
+        outs[rid] = st.output_tokens
+        gap_of[rid] = gaps.pop(id(st), {})
         release(rid)
 
     be.release = spy
     ptrs = (be.kv.k_pages.data_ptr(), be.kv.v_pages.data_ptr())
     eng = ServingEngine(be, sched, max_batch=8)
+    undo = record_gaps(be, gaps) if wave else (lambda: None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cpa.LAUNCHES = 0
+    cpa.LAUNCHES = bda.LAUNCHES = 0
     t0 = time.perf_counter()
-    rep = eng.run(list(reqs))
-    torch.cuda.synchronize()
+    try:
+        rep = eng.run(list(reqs))
+        torch.cuda.synchronize()
+    finally:
+        undo()
     wall = time.perf_counter() - t0
-    launches = cpa.LAUNCHES
-    del model.decode_step_paged, model.prefill_chunk_paged
+    launches, bd_launches = cpa.LAUNCHES, bda.LAUNCHES
+    delattr(model, prefill_fn)
+    del model.decode_step_paged
 
     n_dec, n_pre = be.decode_dispatches, be.prefill_dispatches
     tokens = sum(len(v) for v in outs.values())
@@ -473,6 +754,8 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
     res = {"mode": mode, "requests": len(rep.metrics),
            "tokens_committed": tokens, "decode_dispatches": n_dec,
            "prefill_dispatches": n_pre, "kernel_launches": launches,
+           "bd_kernel_launches": bd_launches,
+           "prefill_shapes": shapes["prefill"],
            "host_bytes_per_decode_dispatch": dec_bytes / max(n_dec, 1),
            "wall_s": wall, "tok_per_s": tokens / wall,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
@@ -480,7 +763,9 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
            "batches": sorted({b for b, _ in shapes["decode"]})}
     log(f"serve {mode}: {res['requests']} requests finished, {tokens} "
         f"tokens committed, {n_dec} decode + {n_pre} prefill dispatches, "
-        f"{launches} kernel launches, {res['host_bytes_per_decode_dispatch']:.1f}"
+        f"{launches} paged + {bd_launches} block-diffusion kernel launches, "
+        f"prefill shapes {sorted(set(shapes['prefill']))}, "
+        f"{res['host_bytes_per_decode_dispatch']:.1f}"
         f" host bytes per decode dispatch, {wall:.3f} s wall, "
         f"{res['tok_per_s']:.2f} committed tok/s, max_memory_allocated "
         f"{res['max_memory_allocated']} B, chunks {res['chunks']}, "
@@ -494,9 +779,17 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
          "a committed token is outside the vocabulary"),
         (n_dec == len(shapes["decode"]) and n_pre == len(shapes["prefill"]),
          "dispatch counters disagree with the dispatches made"),
-        (launches == cfg.n_layers * (n_dec + n_pre),
+        (wave or launches == cfg.n_layers * (n_dec + n_pre),
          f"{launches} kernel launches != {cfg.n_layers} x {n_dec + n_pre} "
          f"dispatches"),
+        (wave or bd_launches == 0,
+         f"{bd_launches} block-diffusion launches in a chunked run"),
+        (not wave or launches == cfg.n_layers * n_dec,
+         f"{launches} paged launches != {cfg.n_layers} x {n_dec} decode "
+         f"dispatches"),
+        (not wave or bd_launches == cfg.n_layers * n_pre > 0,
+         f"{bd_launches} block-diffusion launches != {cfg.n_layers} x "
+         f"{n_pre} prefill dispatches"),
         (be.host_transfer_bytes == dec_bytes + pre_bytes,
          "host bytes != 8·Bp·c per decode + 8·Bp per prefill dispatch"),
         ((be.kv.k_pages.data_ptr(), be.kv.v_pages.data_ptr()) == ptrs,
@@ -506,7 +799,44 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
     for ok, msg in checks:
         if not ok:
             raise AssertionError(f"serve {mode}: {msg}")
+    res["outputs"] = {r.rid: outs[r.rid] for r in reqs}
+    res["gaps"] = gap_of
     return res
+
+
+def compare_runs(wave: dict, chunked: dict) -> dict:
+    """Committed tokens of the wave run against the chunked elastic run on
+    the same requests: the share that differ, and the least top-1/top-2
+    logit gap (wave run) among the tokens that differ.  The runs differ in
+    the prefill kernel's bf16 rounding and in the chunks the elastic
+    scheduler picks (it sees the whole backlog at once in wave mode), so
+    this is a reading, not a check."""
+    total, diff, gaps, first = 0, 0, [], {}
+    for rid, toks in chunked["outputs"].items():
+        mine = wave["outputs"][rid]
+        total += len(toks)
+        for i, (a, b) in enumerate(zip(mine, toks)):
+            if a != b:
+                diff += 1
+                first.setdefault(rid, i)
+                if i in wave["gaps"].get(rid, {}):
+                    gaps.append(wave["gaps"][rid][i])
+    out = {"tokens": total, "tokens_differ": diff,
+           "tokens_differ_share": diff / max(total, 1),
+           "requests_identical": len(chunked["outputs"]) - len(first),
+           "first_divergence": first,
+           "least_gap_where_differ": min(gaps) if gaps else None,
+           "gap_at_first_divergence": {
+               rid: wave["gaps"].get(rid, {}).get(i)
+               for rid, i in first.items()}}
+    log(f"wave vs chunked elastic: {diff}/{total} committed tokens differ "
+        f"(share {out['tokens_differ_share']:.4f}), "
+        f"{out['requests_identical']} of {len(chunked['outputs'])} requests "
+        f"identical; first divergence by request {first}; least top-1/top-2 "
+        f"gap among the differing tokens (wave run) "
+        f"{out['least_gap_where_differ']}, at each first divergence "
+        f"{out['gap_at_first_divergence']}")
+    return out
 
 
 def make_requests(cfg, seed: int, n: int, prompt: tuple, new: tuple):
@@ -565,6 +895,8 @@ def main() -> int:
                 log(f"  ptxas: {line.strip()}")
 
     kern_rows = kernel_phase(args.seed)
+    bd_rows = bd_kernel_phase(args.seed)
+    torch.cuda.empty_cache()
 
     cfg = get_config("sdar-8b")
     model = build_model(cfg)
@@ -578,6 +910,7 @@ def main() -> int:
     pool = make_pool(model, args.seed)
     model_res = model_phase(model, params, pool, args.seed)
     profile_res = profile_phase(model, params, pool, args.seed)
+    prefill_res = prefill_model_phase(model, params, pool, args.seed)
     del pool
     torch.cuda.empty_cache()
 
@@ -588,6 +921,14 @@ def main() -> int:
     runs.append(serve_run(model, params, "ar",
                           make_requests(cfg, args.seed + 1, 4, (128, 256),
                                         (16, 32)), max_len=512))
+    torch.cuda.empty_cache()
+    # the elastic run's requests, made anew (the engine stamps requests)
+    runs.append(serve_run(model, params, "wave",
+                          make_requests(cfg, args.seed, 8, (128, 512),
+                                        (64, 128)), max_len=1024))
+    wave_vs_chunked = compare_runs(runs[2], runs[0])
+    for r in runs:
+        del r["outputs"], r["gaps"]
 
     head = kern_rows[0]
     kernels = [{
@@ -602,13 +943,27 @@ def main() -> int:
         "library_ms": None,
         "shape": head["shape"],
         "shapes": kern_rows,
+    }, {
+        "name": "block_diffusion_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/block_diffusion_attn.cu",
+        "replaces": "src/repro/kernels/block_diffusion_attn.py:86",
+        "launches": sum(r["bd_kernel_launches"] for r in runs),
+        "max_abs_err": max(r["max_abs_err"] for r in bd_rows),
+        "ms": bd_rows[0]["ms"], "plain_ms": bd_rows[0]["plain_ms"],
+        "bound_ms": bd_rows[0]["bound_ms"],
+        "bound_by": bd_rows[0]["bound_by"],
+        "library_ms": bd_rows[0]["library_ms"],
+        "shape": bd_rows[0]["shape"],
+        "shapes": bd_rows,
     }]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "build_s": build_s, "kernels": kernels,
-             "model": model_res, "profile": profile_res, "serve": runs},
-            indent=1))
+             "model": model_res, "profile": profile_res,
+             "prefill_model": prefill_res, "serve": runs,
+             "wave_vs_chunked": wave_vs_chunked}, indent=1))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,14 +1,16 @@
 """Public kernel entry points and the plain-tensor ops around them.
 
-``paged_chunk_attention`` launches the hand-written CUDA kernel for CUDA
-tensors and runs its plain version for CPU tensors — the device of the
-input decides, nothing else.
+``paged_chunk_attention`` and ``block_diffusion_attention`` launch their
+hand-written CUDA kernels for CUDA tensors and run their plain versions for
+CPU tensors — the device of the input decides, nothing else.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.block_diffusion_attn import \
+    block_diffusion_attention
 from repro_torch.kernels.chunked_paged_attn import paged_chunk_attention
 
 
@@ -54,4 +56,5 @@ def softmax_confidence_device(logits):
 
 
 __all__ = ["merge_flash_partials", "combine_flash_partials",
-           "softmax_confidence_device", "paged_chunk_attention"]
+           "softmax_confidence_device", "paged_chunk_attention",
+           "block_diffusion_attention"]

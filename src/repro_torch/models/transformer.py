@@ -10,6 +10,9 @@ paged path, with the same arguments and results:
 * ``freeze_paged`` — write the leading committed window KV into the pool.
 * ``decode_step_paged`` — the fused decode iteration: window forward +
   freeze + on-device confidence/argmax; only ``2·B·c`` scalars come back.
+* ``prefill_paged`` — the wave prefill: one forward over a whole admission
+  wave's prompts (block-causal attention, the block-diffusion kernel once
+  per layer) that scatters their KV into the pool.
 
 The layer stack is a Python loop over the stacked ``[L, …]`` params.  The
 page pool ``{"k_pages", "v_pages"}`` ``[L,P,ps,KVH,hd]`` is updated **in
@@ -23,9 +26,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ops import (paged_chunk_attention,
+from repro_torch.kernels.ops import (block_diffusion_attention,
+                                     paged_chunk_attention,
                                      softmax_confidence_device)
-from repro_torch.kernels.ref import paged_chunk_ref
+from repro_torch.kernels.ref import block_diffusion_ref, paged_chunk_ref
 from repro_torch.models.common import ArchConfig, dense_init, embed_init
 from repro_torch.models.layers import (attn_output, block_causal_mask,
                                        causal_mask, combine_partials,
@@ -145,11 +149,25 @@ class TransformerLM:
     # Layer stack
     # ------------------------------------------------------------------
     def _attn(self, p, x, positions, shared, page_k, page_v):
-        """Attention mixer: paged-prefix partial (kernel, or the plain
-        version under ``paged_impl == "ref"``) combined exactly with the
-        in-window partial.  Returns (y, (k, v))."""
+        """Attention mixer, in one of two forms chosen by ``shared``:
+
+        * ``"self_flash"`` (wave prefill): block-causal attention over the
+          whole position-aligned sequence, one block-diffusion call
+          (kernel, or its plain version under ``impl == "ref"``); no paged
+          prefix is read.
+        * otherwise: the paged-prefix partial (kernel, or the plain version
+          under ``paged_impl == "ref"``) combined exactly with the
+          in-window partial.
+
+        Returns (y, (k, v))."""
         cfg = self.cfg
         q, k, v = qkv_project(p, cfg, x, positions)
+        sf = shared.get("self_flash")
+        if sf is not None:
+            fn = block_diffusion_ref if sf["impl"] == "ref" \
+                else block_diffusion_attention
+            out = fn(q, k, v, sf["lengths"], block_size=sf["block_size"])
+            return attn_output(p, cfg, out), (k, v)
         fn = paged_chunk_ref if shared["paged_impl"] == "ref" \
             else paged_chunk_attention
         paged = fn(q, page_k.to(cfg.cdt), page_v.to(cfg.cdt),
@@ -220,6 +238,49 @@ class TransformerLM:
         shared.update(block_tables=block_tables.to(torch.int32),
                       ctx_lens=ctx_lens.to(torch.int32), paged_impl=impl)
         return shared
+
+    def prefill_paged(self, params, cache, tokens, lengths, block_tables,
+                      head_mode: str = "logits", *, impl: str = "kernel"):
+        """Batched prompt forward writing KV into the page pool (wave
+        prefill): the whole admission wave runs as ONE forward.
+
+        tokens [B,T] (row-padded), lengths [B] (0 ⇒ batch-padding row, no
+        writes), block_tables [B,W] int32.  Positions are ``0..T-1``; every
+        layer's self-attention is one block-diffusion call, block-causal
+        for diffusion models and causal (``block_size = 1``) otherwise.
+        K/V of positions ``< lengths`` land in the pool in place.
+
+        head_mode "logits" returns the last-valid-position logits [B,V]
+        fp32; "sample" reduces them on device
+        (:func:`softmax_confidence_device`) and returns (conf [B], tok
+        [B]), so serving never ships [B,V] logits to the host.  Returns
+        (head output, cache) — the same cache dict, updated in place.
+        """
+        self._check_paged()
+        if head_mode not in ("logits", "sample"):
+            raise ValueError(f"unknown head_mode {head_mode!r}")
+        cfg = self.cfg
+        B, T = tokens.shape
+        dev = tokens.device
+        positions = torch.arange(T, dtype=torch.int64,
+                                 device=dev)[None].expand(B, T)
+        lengths = lengths.to(device=dev, dtype=torch.int32)
+        shared = {"self_flash": {
+            "lengths": lengths, "impl": impl,
+            "block_size": cfg.block_size if cfg.diffusion else 1}}
+        x = self.embed(params, tokens)
+        x, kv = self._stack(params, x, positions, shared, cache)
+        idx = torch.clamp(lengths.long() - 1, 0, T - 1)
+        xl = x[torch.arange(B, device=dev), idx][:, None]
+        logits = self.head(params, xl)[:, 0]
+        P, ps = cache["k_pages"].shape[1], cache["k_pages"].shape[2]
+        keep = positions < lengths[:, None]
+        dest = _page_dest(block_tables, positions, keep, ps, P)
+        _scatter_pages(cache["k_pages"], kv["k"], dest)
+        _scatter_pages(cache["v_pages"], kv["v"], dest)
+        if head_mode == "sample":
+            return softmax_confidence_device(logits), cache
+        return logits, cache
 
     def prefill_chunk_paged(self, params, cache, tokens, offsets, valid,
                             block_tables, *, impl: str = "kernel"):

@@ -827,12 +827,17 @@ class ModelBackend:
     worst-case growth, freezes realized commits into the pool, and trims the
     rest back — the same memory-elastic semantics as :class:`SimBackend`.
 
-    **Chunked prefill** (the default and, in this port, the only mode):
-    a per-request cursor resumes ``TransformerLM.prefill_chunk_paged`` from
+    **Chunked prefill** (``prefill_mode="chunked"``, the default): a
+    per-request cursor resumes ``TransformerLM.prefill_chunk_paged`` from
     its offset, and each decode tick runs at most one budget-bounded,
-    page-aligned prefill dispatch before the decode dispatch.  Each
-    dispatch returns only its confidence/argmax scalars (``8·B`` bytes for
-    prefill, ``8·B·c`` for decode) to the host, counted in
+    page-aligned prefill dispatch before the decode dispatch.  **Wave
+    prefill** (``prefill_mode="wave"``): the whole backlog runs as ONE
+    ``[Bp, Tp]`` pow-2-bucketed ``TransformerLM.prefill_paged`` dispatch
+    (block-diffusion kernel once per layer) before the decode dispatch;
+    the prefix cache neither looks up nor registers in this mode.  Under a
+    fixed chunk schedule both modes commit the same tokens.  Each dispatch
+    returns only its confidence/argmax scalars (``8·Bp`` bytes for
+    prefill, ``8·Bp·c`` for decode) to the host, counted in
     ``host_transfer_bytes``.  An AR request gets its prefill-derived first
     token at the end of the tick its last chunk lands.
 
@@ -840,8 +845,8 @@ class ModelBackend:
     (the torch form of the JAX package's donation contract):
     ``kv.k_pages.data_ptr()`` is fixed for the backend's life.
 
-    Not ported yet (raise ``NotImplementedError``): ``kv_shards > 1``,
-    ``prefill_mode="wave"`` and the recurrent-slot families.
+    Not ported yet (raise ``NotImplementedError``): ``kv_shards > 1`` and
+    the recurrent-slot families.
     """
 
     def __init__(self, model, params, n_slots: int = 8, max_len: int = 512,
@@ -855,9 +860,6 @@ class ModelBackend:
                  host_kv_pages: int = 0, device="cuda"):
         if prefill_mode not in ("chunked", "wave"):
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
-        if prefill_mode == "wave":
-            raise NotImplementedError(
-                "prefill_mode='wave' is not ported yet (use 'chunked')")
         if kv_shards != 1:
             raise NotImplementedError("kv_shards > 1 is not ported yet")
         if not model.supports_paged():
@@ -904,7 +906,7 @@ class ModelBackend:
         self._analytic = AnalyticDeviceModel(self.cfg, CPU_HOST)
         align = _prefill_align(ps, self.cfg)
         target_bc = None
-        if prefill_token_budget is None:
+        if prefill_token_budget is None and prefill_mode == "chunked":
             target_bc = int(min(max(self._analytic.saturation_ew(), align),
                                 8192))
         self._prefill = PrefillScheduler(prefill_token_budget, align,
@@ -934,9 +936,12 @@ class ModelBackend:
 
     # ------------------------------------------------------------------
     def _prefix_lookup(self, req: Request):
-        """Admission-time prefix match.  Host-tier chain pages swap back
+        """Admission-time prefix match (chunked mode only: the wave flush
+        always re-prefills whole prompts from offset 0, which would
+        rewrite attached shared pages).  Host-tier chain pages swap back
         only when the transfer beats recomputing their tokens."""
-        if not self.prefix_cache or req.prompt_tokens is None:
+        if not self.prefix_cache or req.prompt_tokens is None \
+                or self.prefill_mode != "chunked":
             return None
         m = self.kv.lookup_prefix(req.prompt_tokens, req.prompt_len,
                                   align=self._prefix_align)
@@ -1007,7 +1012,8 @@ class ModelBackend:
                 start = req.prompt_len - 1
             self._prefill.add(req, start=start)
         else:
-            if self.prefix_cache and req.prompt_tokens is not None:
+            if self.prefix_cache and req.prompt_tokens is not None \
+                    and self.prefill_mode == "chunked":
                 self.prefix_misses += 1
             self.kv.allocate(req.rid, req.prompt_len)
             self._prefill.add(req)
@@ -1089,11 +1095,17 @@ class ModelBackend:
     def prefill_tick_tokens(self) -> int:
         """Prompt tokens the next tick's prefill phase will process — the
         saturation signal the elastic scheduler folds into chunk choice."""
-        return min(self._prefill.tick_budget(), self._prefill.backlog)
+        backlog = self._prefill.backlog
+        if self.prefill_mode == "wave":
+            return backlog
+        return min(self._prefill.tick_budget(), backlog)
 
     def decode_batch_size(self, rids) -> int:
         """Requests the next decode dispatch will actually include —
-        mid-prefill rids sit the dispatch out."""
+        mid-prefill rids sit the dispatch out in chunked mode, but join it
+        in wave mode (the wave flush completes before the dispatch)."""
+        if self.prefill_mode == "wave":
+            return len(rids)
         return sum(1 for r in rids if not self._prefill.pending(r))
 
     # ------------------------------------------------------------------
@@ -1112,6 +1124,45 @@ class ModelBackend:
         tok = tok.cpu().numpy()
         self.host_transfer_bytes += conf.nbytes + tok.nbytes
         return conf, tok
+
+    def _flush_prefills(self) -> set:
+        """Wave mode: run the whole deferred backlog as ONE batched prefill
+        forward (``[Bp, Tp]``, both pow-2 buckets) that scatters into the
+        pool in place.  Only the ``[Bp]`` device-reduced conf/argmax
+        scalars come back to the host.  Returns rids that received their
+        prefill-derived first token (AR)."""
+        reqs = list(self._prefill.queue)
+        if not reqs:
+            return set()
+        B = len(reqs)
+        Bp = self._bucket(B)
+        Tp = self._bucket(max(r.prompt_len for r in reqs))
+        toks = np.zeros((Bp, Tp), np.int64)
+        lens = np.zeros(Bp, np.int64)
+        tables = np.zeros((Bp, self._table_width), np.int32)
+        tables[:B] = self.kv.batch_tables([r.rid for r in reqs],
+                                          self._table_width)
+        for i, r in enumerate(reqs):
+            toks[i, :r.prompt_len] = np.asarray(r.prompt_tokens)
+            lens[i] = r.prompt_len
+        (conf, tok), _ = self.model.prefill_paged(
+            self.params, self._pages_cache(), self._t(toks),
+            self._t(lens, torch.int32), self._t(tables, torch.int32),
+            head_mode="sample", impl=self._impl)
+        self.prefill_dispatches += 1
+        # wave prefill never reads the paged prefix (scatter only)
+        self.device_dispatches += self.kv_shards
+        conf, tok = self._to_host(conf, tok)
+        fresh = set()
+        for i, r in enumerate(reqs):
+            self._prefill.advance(r.rid, r.prompt_len)
+            st = self._states[r.rid]
+            if isinstance(st, ARState):
+                st.commit(int(tok[i]))
+                fresh.add(r.rid)
+        self.prefill_tokens_history.append(sum(r.prompt_len for r in reqs))
+        self.last_prefill_plan = [(r.rid, 0, r.prompt_len) for r in reqs]
+        return fresh
 
     def _chunked_prefill_tick(self, live_bc: int = 0) -> set:
         """One dispatch advancing up to this tick's budget in prompt tokens
@@ -1164,6 +1215,8 @@ class ModelBackend:
         self.last_prefill_plan = []
         if not self._prefill.queue:
             return set()
+        if self.prefill_mode == "wave":
+            return self._flush_prefills()
         return self._chunked_prefill_tick(live_bc)
 
     def telemetry_counters(self) -> dict:

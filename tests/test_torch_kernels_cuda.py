@@ -4,13 +4,15 @@ and nvcc; skipped elsewhere).  Run on the card with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances as tests/test_kernels.py: fp32 2e-5 / bf16 3e-2 relative on acc,
-m within rtol 1e-5 / atol 1e-4.
+m within rtol 1e-5 / atol 1e-4; the block-diffusion output within 2e-5 /
+3e-2 (rtol and atol).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import block_diffusion_attn as bda
 from repro_torch.kernels import chunked_paged_attn as cpa
 
 pytestmark = pytest.mark.cuda
@@ -79,3 +81,56 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     q, kp = q[..., :8].contiguous(), kp[..., :8].contiguous()
     with pytest.raises(ValueError, match="rows_per_warp"):
         cpa.paged_chunk_attention_kernel(q, kp, kp, t, ln, rows_per_warp=4)
+
+
+BD_SHAPES = {
+    # B, T, H, KVH, D, block_size, lengths  (chip_smoke.py shapes (e)-(h))
+    "e_wave_sdar8b": (8, 512, 32, 8, 128, 32,
+                      [512, 0, 1, 31, 33, 200, 511, 384]),
+    "f_long": (2, 2048, 32, 8, 128, 32, [2048, 1500]),
+    "g_causal": (4, 256, 32, 8, 128, 1, [256, 0, 100, 17]),
+    "h_smoke_d8": (3, 48, 8, 2, 8, 8, [48, 0, 5]),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(BD_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_diffusion_kernel_matches_plain_version(cuda, shape, dtype):
+    B, T, H, KVH, D, bs, lens = BD_SHAPES[shape]
+    rng = np.random.default_rng(42)
+    mk = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                                    device=cuda).to(dtype)
+    q, k, v = mk(B, T, H, D), mk(B, T, KVH, D), mk(B, T, KVH, D)
+    lens = torch.as_tensor(lens, dtype=torch.int32, device=cuda)
+    before = bda.LAUNCHES
+    out = bda.block_diffusion_attention(q, k, v, lens, block_size=bs)
+    torch.cuda.synchronize()
+    assert bda.LAUNCHES == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = bda.block_diffusion_ref(q, k, v, lens, block_size=bs)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    for b in range(B):
+        if int(lens[b]) == 0:
+            assert torch.all(out[b] == 0)
+
+
+def test_block_diffusion_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 8, 4, 8), device=cuda)
+    k = torch.zeros((1, 8, 2, 8), device=cuda)
+    ln = torch.full((1,), 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        bda.block_diffusion_attention_kernel(q.cpu(), k.cpu(), k.cpu(),
+                                             ln.cpu(), block_size=4)
+    with pytest.raises(ValueError, match="head_dim"):
+        bda.block_diffusion_attention_kernel(
+            torch.zeros((1, 8, 4, 12), device=cuda),
+            torch.zeros((1, 8, 2, 12), device=cuda),
+            torch.zeros((1, 8, 2, 12), device=cuda), ln, block_size=4)
+    with pytest.raises(ValueError, match="dtype"):
+        bda.block_diffusion_attention_kernel(q, k.bfloat16(), k, ln,
+                                             block_size=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        bda.block_diffusion_attention_kernel(
+            q.transpose(1, 2).contiguous().transpose(1, 2), k, k, ln,
+            block_size=4)

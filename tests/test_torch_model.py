@@ -1,9 +1,10 @@
 """The port's paged transformer against the JAX package's, per dispatch,
 under teacher forcing: the same bridged weights and the same window tokens
-go through ``prefill_chunk_paged`` and ``decode_step_paged`` on both sides.
+go through ``prefill_chunk_paged`` and ``decode_step_paged`` on both sides,
+and the same admission wave through ``prefill_paged``.
 
-Tolerances (fp32 on the CPU): conf within 1e-5 and written pages within
-1e-5 absolute — the two frameworks sum matmuls in another order; tokens
+Tolerances (fp32 on the CPU): conf, logits and written pages within 1e-5
+absolute — the two frameworks sum matmuls in another order; tokens
 must be equal.  The port's pool must be updated in place
 (``data_ptr`` unchanged).
 """
@@ -32,6 +33,10 @@ CONFIGS = {
     "paged_backend": (lambda: JaxArchConfig(**PAGED_CFG),
                       lambda: ArchConfig(**PAGED_CFG)),
 }
+# tests/test_prefill_interleave.py's AR config (causal prefill)
+AR_CFG = {**PAGED_CFG, "name": "tar", "diffusion": False}
+WAVE_CONFIGS = {**CONFIGS, "paged_backend_ar": (
+    lambda: JaxArchConfig(**AR_CFG), lambda: ArchConfig(**AR_CFG))}
 
 
 def _pages_close(cache_t, cache_j):
@@ -111,6 +116,59 @@ def test_paged_dispatches_match_jax(which):
         np.testing.assert_array_equal(tt.numpy(), np.asarray(tj))
         _pages_close(tcache, jcache)
         start = start + np.asarray(n_adv)
+    assert (tcache["k_pages"].data_ptr(),
+            tcache["v_pages"].data_ptr()) == ptr
+
+
+@pytest.mark.parametrize("head_mode", ["sample", "logits"])
+@pytest.mark.parametrize("which", sorted(WAVE_CONFIGS))
+def test_prefill_paged_matches_jax(which, head_mode):
+    """One wave-prefill dispatch on both sides: a batch padded to a power of
+    two with a ``lengths = 0`` row, a prompt shorter than the block, and
+    rows sharing no pages.  The head output and every page of the pool must
+    agree, and the port's pool is written in place."""
+    jcfg, tcfg = WAVE_CONFIGS[which][0](), WAVE_CONFIGS[which][1]()
+    jm, tm = jax_build(jcfg), build_model(tcfg)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams),
+                              device="cpu")
+    rng = np.random.default_rng(4)
+    ps, P, W = 8, 24, 4
+    lens = np.asarray([29, 5, 0, 16], np.int32)     # 5 < block, 0 = padding
+    B, T = len(lens), 32
+    toks = np.zeros((B, T), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(4, tcfg.vocab_size, n)
+    tables = np.zeros((B, W), np.int32)
+    tables[0] = [5, 0, 17, 9]
+    tables[1, :1] = [2]
+    tables[3, :2] = [11, 23]
+
+    jcache = jm.init_paged_cache(P, ps, dtype=jnp.float32)
+    tcache = tm.init_paged_cache(P, ps, dtype=torch.float32, device="cpu")
+    ptr = tcache["k_pages"].data_ptr(), tcache["v_pages"].data_ptr()
+    jpre = jax.jit(functools.partial(jm.prefill_paged, head_mode=head_mode))
+    jout, jcache = jpre(jparams, jcache, jnp.asarray(toks),
+                        jnp.asarray(lens), jnp.asarray(tables))
+    tout, same = tm.prefill_paged(
+        tparams, tcache, torch.from_numpy(toks), torch.from_numpy(lens),
+        torch.from_numpy(tables), head_mode=head_mode)
+    assert same is tcache
+    if head_mode == "sample":
+        (cj, tj), (ct, tt) = jout, tout
+        assert ct.shape == (B,) and tt.dtype == torch.int32
+        np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(tj))
+    else:
+        assert tout.shape == (B, tcfg.vocab_size)
+        np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=0,
+                                   atol=1e-5)
+    assert torch.isfinite(tcache["k_pages"]).all()
+    _pages_close(tcache, jcache)
+    # written: exactly the live positions' slots (pool was zero)
+    assert int((tcache["k_pages"][0].abs().sum((-1, -2)) > 0).sum()) == \
+        int(lens.sum())
     assert (tcache["k_pages"].data_ptr(),
             tcache["v_pages"].data_ptr()) == ptr
 

@@ -2,10 +2,12 @@
 weights and the same requests through each package's ``ServingEngine`` and
 paged ``ModelBackend`` must commit identical tokens per request, with the
 same chunk/batch history and the same dispatch and host-byte counters —
-in elastic, fixed-chunk and AR modes.  The reference runs its jnp oracle
-(``attn_impl="ref"``; its kernel-vs-oracle identity is pinned by its own
-tests), the port its default path (the kernel's plain version on CPU).
-The host-only half is held by an identical ``SimBackend`` report.
+in elastic, fixed-chunk and AR modes, and with wave prefill in slide, OBS
+and AR.  The reference runs its jnp oracle (``attn_impl="ref"``; its
+kernel-vs-oracle identity is pinned by its own tests; its wave prefill
+runs the XLA flash path), the port its default path (the kernels' plain
+versions on CPU).  The host-only half is held by an identical
+``SimBackend`` report.
 """
 
 import hashlib
@@ -27,19 +29,30 @@ from repro_torch.models import ArchConfig, build_model, params_from_jax
 CFG = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4,
            n_kv_heads=2, d_ff=128, vocab_size=256, block_size=8,
            confidence_threshold=0.6)
+# tests/test_prefill_interleave.py's AR config (causal prefill)
+CFG_AR = {**CFG, "name": "tar", "diffusion": False}
 SIDES = {
     "jax": (jcore, jserving, J_CPU_HOST),
     "torch": (tcore, tserving, T_CPU_HOST),
 }
 
 
-@pytest.fixture(scope="module")
-def weights():
-    jm = jax_build(JaxArchConfig(**CFG))
+def _bridged(cfg):
+    jm = jax_build(JaxArchConfig(**cfg))
     jparams = jm.init(jax.random.PRNGKey(0))
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams),
                               device="cpu")
-    return jm, jparams, build_model(ArchConfig(**CFG)), tparams
+    return jm, jparams, build_model(ArchConfig(**cfg)), tparams
+
+
+@pytest.fixture(scope="module")
+def weights():
+    return _bridged(CFG)
+
+
+@pytest.fixture(scope="module")
+def ar_weights():
+    return _bridged(CFG_AR)
 
 
 def _requests(serving, n, seed=0):
@@ -103,6 +116,104 @@ def test_model_backend_commits_same_tokens(weights, mode):
         (rep_j.total_tokens, rep_j.computed_tokens)
     assert cnt_t == cnt_j
     assert cnt_t[3] == cnt_t[4]                 # pool fully drained
+
+
+def _wave_requests(serving, n=6, prompt=40, out=16, seed=3):
+    """tests/test_prefill_interleave.py's requests: all arrive at t = 0."""
+    rng = np.random.default_rng(seed)
+    reqs = list(serving.PoissonWorkload(serving.DATASETS["sharegpt"], 50.0,
+                                        n, seed=seed))
+    for r in reqs:
+        r.prompt_len = prompt
+        r.max_new_tokens = out
+        r.prompt_tokens = rng.integers(4, CFG["vocab_size"], prompt).tolist()
+        r.arrival_time = 0.0
+    return reqs
+
+
+def _serve_fixed(side, weights, variant, prefill_mode):
+    """One fixed-chunk run (8 for diffusion, 1 for AR) with the given
+    prefill mode.  Returns (report, tokens per rid, backend, the port's
+    dispatch shapes by kind)."""
+    jm, jparams, tm, tparams = weights
+    core, serving, _ = SIDES[side]
+    kw = dict(n_slots=8, max_len=64, prefill_mode=prefill_mode,
+              prefill_token_budget=16, obs=variant == "obs",
+              decode_mode="ar" if variant == "ar" else "elastic")
+    shapes = {"prefill_paged": [], "prefill_chunk_paged": [],
+              "decode_step_paged": []}
+    if side == "jax":
+        be = serving.ModelBackend(jm, jparams, attn_impl="ref", **kw)
+    else:
+        be = serving.ModelBackend(tm, tparams, device="cpu", **kw)
+        for name in shapes:
+            fn = getattr(tm, name)
+
+            def rec(params, cache, tokens, *a, _n=name, _f=fn, **k):
+                shapes[_n].append(tuple(tokens.shape))
+                return _f(params, cache, tokens, *a, **k)
+            setattr(be.model, name, rec)
+    eng = serving.ServingEngine(
+        be, core.FixedScheduler(1 if variant == "ar" else 8), max_batch=8)
+    outs = {}
+    release = be.release
+
+    def spy(rid):
+        outs[rid] = be.state(rid).output_tokens
+        release(rid)
+
+    be.release = spy
+    try:
+        rep = eng.run(_wave_requests(serving))
+    finally:
+        if side == "torch":
+            for name in shapes:
+                delattr(be.model, name)
+    return rep, outs, be, shapes
+
+
+@pytest.mark.parametrize("variant", ["slide", "obs", "ar"])
+def test_model_backend_wave_matches_reference(weights, ar_weights, variant):
+    """Wave prefill: identical committed tokens, prefill history and
+    counters; one ``[Bp, Tp]`` prefill dispatch brings back ``8·Bp`` host
+    bytes, each decode dispatch ``8·Bp·c``; no page leaks."""
+    w = ar_weights if variant == "ar" else weights
+    rep_j, out_j, be_j, _ = _serve_fixed("jax", w, variant, "wave")
+    rep_t, out_t, be_t, shapes = _serve_fixed("torch", w, variant, "wave")
+    assert len(out_t) == len(out_j) == 6
+    assert out_t == out_j
+    assert {m.rid: m.n_tokens for m in rep_t.metrics} == \
+        {m.rid: m.n_tokens for m in rep_j.metrics}
+    assert be_t.prefill_tokens_history == be_j.prefill_tokens_history
+    assert be_t.prefill_tokens_history[0] == 6 * 40   # the whole wave
+    assert rep_t.chunk_history == rep_j.chunk_history
+    cnt = lambda be: (be.decode_dispatches, be.prefill_dispatches,
+                      be.host_transfer_bytes, be.prefix_misses,
+                      be.kv.free_pages, be.kv.n_pages)
+    assert cnt(be_t) == cnt(be_j)
+    assert not shapes["prefill_chunk_paged"]
+    assert len(shapes["prefill_paged"]) == be_t.prefill_dispatches >= 1
+    assert shapes["prefill_paged"][0] == (8, 64)      # pow-2 Bp and Tp
+    assert be_t.host_transfer_bytes == \
+        sum(8 * b for b, _ in shapes["prefill_paged"]) + \
+        sum(8 * b * c for b, c in shapes["decode_step_paged"])
+    assert be_t.kv.free_pages == be_t.kv.n_pages
+
+
+@pytest.mark.parametrize("variant", ["slide", "obs", "ar"])
+def test_model_backend_wave_matches_own_chunked(weights, ar_weights,
+                                                variant):
+    """The port's two prefill modes commit bit-identical tokens under a
+    fixed chunk schedule (tests/test_prefill_interleave.py:72-94)."""
+    w = ar_weights if variant == "ar" else weights
+    rep_w, out_w, _, _ = _serve_fixed("torch", w, variant, "wave")
+    rep_c, out_c, be_c, shapes = _serve_fixed("torch", w, variant,
+                                              "chunked")
+    assert len(rep_w.metrics) == len(rep_c.metrics) == 6
+    assert out_c == out_w
+    assert {m.rid: m.n_tokens for m in rep_c.metrics} == \
+        {m.rid: m.n_tokens for m in rep_w.metrics}
+    assert shapes["prefill_chunk_paged"] and not shapes["prefill_paged"]
 
 
 def _report_hash(rep) -> str:
