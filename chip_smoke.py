@@ -9,14 +9,20 @@ Phases, in order (any failed check raises and the script exits non-zero):
 2. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a (one compile per source, all at once);
 3. kernel phase: each kernel's wrapper on CUDA tensors against its plain
-   PyTorch version on the same inputs, at the serving path's shapes, with
-   times (CUDA events; the paged kernel under both row tilings, the
-   block-diffusion kernel beside ``scaled_dot_product_attention``) and the
-   card's least time for the same work;
+   PyTorch version on the same inputs, at the serving path's shapes, under
+   each body (bf16: the tensor-core body the wrapper picks and the first,
+   CUDA-core design; the paged kernel's tensor-core body also with one
+   split),
+   with times (CUDA events; the block-diffusion kernel beside
+   ``scaled_dot_product_attention``), TFLOP/s and the card's least time for
+   the same work; then the split merge at rows whose splits are all empty
+   (ctx 0) or all but the first (ctx 5);
 4. model phase: one ``decode_step_paged`` dispatch of SDAR-8B at full width
    and depth in bf16, through the kernel and through the plain version, on
    the same weights and pool, held at limits that a control run (the
-   kernel's acc skewed by ``CONTROL_SKEW``) must break;
+   kernel's acc skewed by ``CONTROL_SKEW``) must break, beside the phase's
+   noise floor (the plain split version against the plain version) and
+   the gap check's margin under other attention paths (readings only);
 5. profile phase: the same dispatch at B 8, c 32 with every context at 512
    and at 2048 tokens, timed through the kernel and the plain version, and
    split by kernel with ``torch.profiler``: the device's busy share of the
@@ -31,8 +37,9 @@ Phases, in order (any failed check raises and the script exits non-zero):
    seeded random weights drawn on the card) served by the paged
    ``ModelBackend`` through ``ServingEngine`` — an elastic run of 8
    requests with chunked prefill, a shorter AR run, and the elastic run's
-   requests again with wave prefill — with the kernels' launch counts set
-   to 0 before each run and read after it.
+   requests again with wave prefill — with the kernels' launch counts (and
+   the paged kernel's merge launches) set to 0 before each run and read
+   after it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repository
@@ -68,6 +75,33 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(text: str) -> list[dict]:
+    """Registers and spill bytes of each kernel instantiation, from nvcc's
+    ``-Xptxas=-v`` log, named ``kernel<template args>``."""
+    import re
+
+    types = {"13__nv_bfloat16": "bf16", "f": "float"}
+    out, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"\d+((?:paged_chunk|block_diffusion)_attn\w*?"
+                          r"_kernel)I(\w*?)EEv", m.group(1))
+            args = [types.get(t, n) for t, n in re.findall(
+                r"(13__nv_bfloat16|f(?=L))|L[ij](\d+)E", k.group(2))] \
+                if k else []
+            name = f"{k.group(1)}<{','.join(args)}>" if k else m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append({"kernel": name, "registers": int(m.group(1)),
+                        "spill_bytes": spill})
+            name, spill = None, 0
+    return out
 
 
 def time_ms(fn, iters: int = 25, warmup: int = 3) -> float:
@@ -159,8 +193,10 @@ def bd_bound(B, T, H, KVH, D, bs, dtype, lengths):
 
 
 def bd_kernel_phase(seed: int) -> list[dict]:
-    """The block-diffusion kernel against its plain version at BD_SHAPES,
-    with its time, the plain version's, one ``scaled_dot_product_attention``
+    """The block-diffusion kernel against its plain version at BD_SHAPES
+    under each body (bf16: the tensor-core body and the CUDA-core body),
+    with the time of each, the plain version's, one
+    ``scaled_dot_product_attention``
     call's on the same function (rows with lengths >= 1 only: it gives NaN
     on an all-masked row; timed, never on the path) and the bound."""
     import torch
@@ -176,21 +212,30 @@ def bd_kernel_phase(seed: int) -> list[dict]:
         k = torch.randn((B, T, KVH, D), generator=g, device=DEVICE).to(td)
         v = torch.randn((B, T, KVH, D), generator=g, device=DEVICE).to(td)
         ln = torch.as_tensor(lens, dtype=torch.int32, device=DEVICE)
-        out = bda.block_diffusion_attention_kernel(q, k, v, ln,
-                                                   block_size=bs)
-        torch.cuda.synchronize()
         want = bda.block_diffusion_ref(q, k, v, ln, block_size=bs)
-        tol = BF16_TOL if dtype == "bfloat16" else FP32_TOL
-        err = float((out.float() - want.float()).abs().max())
-        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
-                                   atol=tol)
-        if not torch.isfinite(out).all():
-            raise AssertionError(f"{name}: non-finite kernel output")
-        for i in [i for i, n in enumerate(lens) if n == 0]:
-            if not torch.all(out[i] == 0):
-                raise AssertionError(f"{name}: lengths-0 row {i} is not 0")
-        ms = time_ms(lambda: bda.block_diffusion_attention_kernel(
-            q, k, v, ln, block_size=bs))
+        bf16 = dtype == "bfloat16"
+        tol = BF16_TOL if bf16 else FP32_TOL
+        variants = {"picked": {}}
+        if bf16:
+            variants["cuda_core"] = {"body": "cuda_core"}
+        err = 0.0
+        for var, forced in variants.items():
+            out = bda.block_diffusion_attention_kernel(
+                q, k, v, ln, block_size=bs, **forced)
+            torch.cuda.synchronize()
+            err = max(err, float((out.float() - want.float()).abs().max()))
+            torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"{name} ({var}): non-finite output")
+            for i in [i for i, n in enumerate(lens) if n == 0]:
+                if not torch.all(out[i] == 0):
+                    raise AssertionError(f"{name} ({var}): lengths-0 row {i}"
+                                         f" is not 0")
+        ms_by = {var: time_ms(lambda: bda.block_diffusion_attention_kernel(
+            q, k, v, ln, block_size=bs, **forced))
+            for var, forced in variants.items()}
+        ms = ms_by["picked"]
         plain_ms = time_ms(lambda: bda.block_diffusion_ref(
             q, k, v, ln, block_size=bs))
         live = [i for i, n in enumerate(lens) if n > 0]
@@ -203,79 +248,171 @@ def bd_kernel_phase(seed: int) -> list[dict]:
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, enable_gqa=True))
         b_ms, b_by = bd_bound(B, T, H, KVH, D, bs, dtype, lens)
+        gflop = 4.0 * D * H * bd_visible(T, bs, lens) / 1e9
         row = {"shape": name, "B": B, "T": T, "H": H, "KVH": KVH, "D": D,
                "block_size": bs, "dtype": dtype, "lengths": lens,
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "max_abs_err": err,
+               "body": "tensor_core" if bf16 else "cuda_core", "ms": ms,
+               "ms_cuda_core": ms_by.get("cuda_core", ms),
+               "ms_by_variant": ms_by, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "live_gflop": 4.0 * D * H * bd_visible(T, bs, lens) / 1e9}
+               "live_gflop": gflop, "tflops": gflop / ms,
+               "kernel_over_bound": ms / b_ms}
         rows.append(row)
-        log(f"kernel {name}: max_abs_err {err:.3e} | kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound "
-            f"{b_ms:.4f} ms ({b_by}); {row['live_gflop']:.3f} live GFLOP "
-            f"= {row['live_gflop'] / ms:.2f} TFLOP/s")
+        times = "  ".join(f"{var} {t:.4f} ms ({gflop / t:.2f} TFLOP/s, "
+                          f"{t / b_ms:.1f}x bound)"
+                          for var, t in ms_by.items())
+        log(f"kernel {name}: max_abs_err {err:.3e} | {times} | plain "
+            f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms ({gflop / lib_ms:.2f} "
+            f"TFLOP/s)  bound {b_ms:.5f} ms ({b_by}); {gflop:.3f} live "
+            f"GFLOP")
         del q, k, v, out, want, qs, ks, vs, mask
     return rows
 
 
-def kernel_phase(seed: int) -> list[dict]:
+def paged_inputs(B, c, H, KVH, D, ps, dtype, ctx, seed: int):
+    """Random q and K/V pages on the card, a random block table with room
+    for the longest context, and ctx_lens: the paged kernel's arguments."""
     import numpy as np
+    import torch
+
+    td = getattr(torch, dtype)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    n_slots = max(-(-max(ctx) // ps), 1)
+    P = B * n_slots + 3
+    q = torch.randn((B, c, H, D), generator=g, device=DEVICE).to(td)
+    kp = torch.randn((P, ps, KVH, D), generator=g, device=DEVICE).to(td)
+    vp = torch.randn((P, ps, KVH, D), generator=g, device=DEVICE).to(td)
+    perm = np.random.default_rng(seed).permutation(P)[:B * n_slots]
+    tables = torch.as_tensor(perm.reshape(B, n_slots), dtype=torch.int32,
+                             device=DEVICE)
+    lens = torch.as_tensor(ctx, dtype=torch.int32, device=DEVICE)
+    return q, kp, vp, tables, lens
+
+
+def check_partials(name, got, want, ctx, tol):
+    """Hold paged partials against the plain version's; ctx-0 rows must be
+    the exact empty partial.  Returns (max abs err, max rel err) of acc."""
+    import torch
+
+    acc, m, l = got
+    acc_r, m_r, l_r = want
+    e = float((acc - acc_r).abs().max())
+    r = e / (float(acc_r.abs().max()) + 1e-9)
+    torch.testing.assert_close(m, m_r, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(l, l_r, rtol=tol, atol=1e-5)
+    if not r < tol:
+        raise AssertionError(f"{name}: acc max relative error {r} >= {tol}")
+    for i in [i for i, x in enumerate(ctx) if x == 0]:
+        if not (torch.all(acc[i] == 0) and torch.all(l[i] == 0)
+                and torch.all(m[i] == -1e30)):
+            raise AssertionError(f"{name}: ctx-0 row {i} is not the empty "
+                                 f"partial")
+    return e, r
+
+
+def kernel_phase(seed: int) -> list[dict]:
+    """The paged kernel against its plain version at KERNEL_SHAPES under
+    each body: bf16 the tensor-core body with the split count the wrapper
+    picks and with one split, and the CUDA-core body; float32 the CUDA-core
+    body under each row tiling.  Times of each, the plain version and the
+    bound."""
     import torch
 
     from repro_torch.kernels import chunked_paged_attn as cpa
 
     rows = []
     for name, B, c, H, KVH, D, ps, dtype, ctx in KERNEL_SHAPES:
-        td = getattr(torch, dtype)
-        g = torch.Generator(device=DEVICE).manual_seed(seed)
-        n_slots = max(-(-max(ctx) // ps), 1)
-        P = B * n_slots + 3
-        q = torch.randn((B, c, H, D), generator=g, device=DEVICE).to(td)
-        kp = torch.randn((P, ps, KVH, D), generator=g, device=DEVICE).to(td)
-        vp = torch.randn((P, ps, KVH, D), generator=g, device=DEVICE).to(td)
-        perm = np.random.default_rng(seed).permutation(P)[:B * n_slots]
-        tables = torch.as_tensor(perm.reshape(B, n_slots), dtype=torch.int32,
-                                 device=DEVICE)
-        lens = torch.as_tensor(ctx, dtype=torch.int32, device=DEVICE)
-        args = (q, kp, vp, tables, lens)
-        acc_r, m_r, l_r = cpa.paged_chunk_ref(*args)
-        tol = BF16_TOL if dtype == "bfloat16" else FP32_TOL
+        args = paged_inputs(B, c, H, KVH, D, ps, dtype, ctx, seed)
+        n_slots = args[3].shape[1]
+        want = cpa.paged_chunk_ref(*args)
+        bf16 = dtype == "bfloat16"
+        tol = BF16_TOL if bf16 else FP32_TOL
+        variants = {"picked": {}}
+        if bf16:
+            variants["tensor_core_s1"] = {"body": "tensor_core", "splits": 1}
+            variants["cuda_core"] = {"body": "cuda_core"}
+        else:
+            variants["cuda_core_rows_1"] = {"rows_per_warp": 1}
+            variants["cuda_core_rows_8"] = {"rows_per_warp": 8}
         err = rel = 0.0
-        for rpw in (0, 1, 8):   # the tiling the wrapper picks, then each
-            acc, m, l = cpa.paged_chunk_attention_kernel(
-                *args, rows_per_warp=rpw)
+        for v, forced in variants.items():
+            got = cpa.paged_chunk_attention_kernel(*args, **forced)
             torch.cuda.synchronize()
-            e = float((acc - acc_r).abs().max())
-            r = e / (float(acc_r.abs().max()) + 1e-9)
-            torch.testing.assert_close(m, m_r, rtol=1e-5, atol=1e-4)
-            torch.testing.assert_close(l, l_r, rtol=tol, atol=1e-5)
-            if not r < tol:
-                raise AssertionError(f"{name} (rows per warp {rpw}): acc max "
-                                     f"relative error {r} >= {tol}")
-            for i in [i for i, x in enumerate(ctx) if x == 0]:
-                if not (torch.all(acc[i] == 0) and torch.all(l[i] == 0)
-                        and torch.all(m[i] == -1e30)):
-                    raise AssertionError(f"{name}: ctx-0 row {i} is not the "
-                                         f"empty partial")
+            e, r = check_partials(f"{name} ({v})", got, want, ctx, tol)
             err, rel = max(err, e), max(rel, r)
-        ms = time_ms(lambda: cpa.paged_chunk_attention_kernel(*args))
-        by_rpw = {rpw: time_ms(lambda: cpa.paged_chunk_attention_kernel(
-            *args, rows_per_warp=rpw)) for rpw in (1, 8)}
+        ms_by = {v: time_ms(lambda: cpa.paged_chunk_attention_kernel(
+            *args, **forced)) for v, forced in variants.items()}
         plain_ms = time_ms(lambda: cpa.paged_chunk_ref(*args))
         b_ms, b_by = bound(B, c, H, KVH, D, ps, dtype, ctx)
-        picked = 1 if (H // KVH) * c <= 8 else 8
+        gflop = 4.0 * sum(ctx) * c * H * D / 1e9
+        ms = ms_by["picked"]
         row = {"shape": name, "B": B, "c": c, "H": H, "KVH": KVH, "D": D,
-               "page_size": ps, "dtype": dtype, "ctx_lens": ctx,
-               "max_abs_err": err, "max_rel_err": rel, "ms": ms,
-               "rows_per_warp": picked, "ms_rows_per_warp_1": by_rpw[1],
-               "ms_rows_per_warp_8": by_rpw[8],
-               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+               "page_size": ps, "n_slots": n_slots, "dtype": dtype,
+               "ctx_lens": ctx, "max_abs_err": err, "max_rel_err": rel,
+               "body": "tensor_core" if bf16 else "cuda_core",
+               "splits": (cpa.pick_splits(B, c, H, KVH, ps, n_slots)
+                          if bf16 else 1),
+               "ms": ms, "ms_s1": ms_by.get("tensor_core_s1"),
+               "ms_cuda_core": ms_by.get("cuda_core", ms),
+               "ms_by_variant": ms_by, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "live_gflop": gflop,
+               "tflops": gflop / ms, "kernel_over_bound": ms / b_ms}
         rows.append(row)
-        log(f"kernel {name}: max_abs_err {err:.3e} rel {rel:.3e} | kernel "
-            f"{ms:.4f} ms (rows per warp {picked}; forced 1: "
-            f"{by_rpw[1]:.4f} ms, forced 8: {by_rpw[8]:.4f} ms)  plain "
-            f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
-        del q, kp, vp, acc, m, l, acc_r, m_r, l_r
+        times = "  ".join(f"{v} {t:.4f} ms ({gflop / t:.2f} TFLOP/s, "
+                          f"{t / b_ms:.1f}x bound)" for v, t in ms_by.items())
+        log(f"kernel {name}: max_abs_err {err:.3e} rel {rel:.3e} | {times}"
+            f" | splits picked {row['splits']}  plain {plain_ms:.4f} ms  "
+            f"bound {b_ms:.5f} ms ({b_by})")
+        del args, got, want
     return rows
+
+
+# The split merge at the SDAR-8B decode shape with a table of 2080 keys
+# (33 tiles) and eight forced splits: row 0 has ctx 0, so all its splits
+# are empty; row 1 has ctx 5, so only its first split is live.
+MERGE_SHAPE = ("merge_sdar8b", 2, 32, 32, 8, 128, 16, "bfloat16", [0, 5])
+MERGE_SPLITS = 8
+
+
+def merge_phase(seed: int) -> dict:
+    """The paged kernel's merge of split partials at MERGE_SHAPE: a ctx-0
+    row must come out the exact empty partial, and a ctx-5 row (one live
+    split merged with seven empty ones) bit-equal to the one-split run and
+    within tolerance of the plain split version and the plain version."""
+    import torch
+
+    from repro_torch.kernels import chunked_paged_attn as cpa
+
+    name, B, c, H, KVH, D, ps, dtype, ctx = MERGE_SHAPE
+    args = paged_inputs(B, c, H, KVH, D, ps, dtype, [2080, 0], seed)
+    q, kp, vp, tables, _ = args
+    lens = torch.as_tensor(ctx, dtype=torch.int32, device=DEVICE)
+    args = (q, kp, vp, tables, lens)
+    before = cpa.MERGE_LAUNCHES
+    split = cpa.paged_chunk_attention_kernel(*args, body="tensor_core",
+                                             splits=MERGE_SPLITS)
+    one = cpa.paged_chunk_attention_kernel(*args, body="tensor_core",
+                                           splits=1)
+    torch.cuda.synchronize()
+    if cpa.MERGE_LAUNCHES != before + 1:
+        raise AssertionError("merge: the split run launched no merge")
+    for a, b in zip(split, one):
+        if not torch.equal(a, b):
+            raise AssertionError("merge: one live split merged with empty "
+                                 "ones differs from the one-split run")
+    e, _ = check_partials(name, split, cpa.paged_chunk_ref(*args),
+                          ctx, BF16_TOL)
+    e2, _ = check_partials(name, split, cpa.paged_chunk_split_ref(
+        *args, splits=MERGE_SPLITS), ctx, BF16_TOL)
+    log(f"merge {name} (ctx {ctx}, {MERGE_SPLITS} splits over "
+        f"{tables.shape[1] * ps} table keys): ctx-0 row exact empty partial;"
+        f" ctx-5 row bit-equal to one split; max abs err vs plain {e:.3e}, "
+        f"vs plain split version {e2:.3e}")
+    return {"shape": name, "ctx_lens": ctx, "splits": MERGE_SPLITS,
+            "table_keys": int(tables.shape[1] * ps),
+            "bit_equal_to_one_split": True, "max_abs_err": e,
+            "max_abs_err_split_ref": e2}
 
 
 # ---------------------------------------------------------------------------
@@ -341,10 +478,19 @@ def decode_inputs(model, ctx, seed: int):
             torch.zeros(MODEL_B, dtype=torch.int64, device=DEVICE))
 
 
+# The gap sweep: the decode gap check's margin with the attention of the
+# dispatch taken by other paths (readings only): the tensor-core body at
+# each split count, the CUDA-core body, the plain split version, and the
+# plain version with P rounded to bf16 (the Pallas body's numerics).
+SWEEP_SPLITS = (1, 2, 3, 4, 5, 8)
+SWEEP_PLAIN_SPLITS = (2, 3, 4, 8)
+
+
 def model_phase(model, params, pool, seed: int) -> dict:
     import torch
 
     import repro_torch.models.transformer as tfm
+    from repro_torch.kernels import chunked_paged_attn as cpa
     from repro_torch.kernels.ops import softmax_confidence_device
 
     cfg = model.cfg
@@ -380,6 +526,18 @@ def model_phase(model, params, pool, seed: int) -> dict:
         control = dispatch("kernel")
     finally:
         tfm.paged_chunk_attention = exact
+    # the phase's noise floor: the plain split version (the plain math, the
+    # kernel's split of the keys, another order of the sums) on the plain
+    # path — a reading only
+    plain, n_keys = tfm.paged_chunk_ref, tables.shape[1] * cfg.kv_page_size
+    splits = cpa.pick_splits(MODEL_B, MODEL_C, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.kv_page_size, tables.shape[1])
+    tfm.paged_chunk_ref = lambda *a, **k: cpa.paged_chunk_split_ref(
+        *a, splits=splits, **k)
+    try:
+        reorder = dispatch("ref")
+    finally:
+        tfm.paged_chunk_ref = plain
     torch.cuda.synchronize()
 
     lr_std = float(lr.std())
@@ -394,20 +552,31 @@ def model_phase(model, params, pool, seed: int) -> dict:
     top2 = lr.topk(2, dim=-1).values
     gap = top2[..., 0] - top2[..., 1]
     tol = BF16_TOL * top2[..., 0].abs().clamp(min=1.0)
-    diff = tk != tr
-    n_diff = int(diff.sum())
-    # tokens may differ only where the plain path's top-1/top-2 gap is
-    # under the bf16 tolerance; the margin is the least (tolerance - gap)
-    margin = float((tol - gap)[diff].min()) if n_diff else None
+
+    def margin_of(tok):
+        # tokens may differ only where the plain path's top-1/top-2 gap is
+        # under the bf16 tolerance; the margin is the least (tolerance -
+        # gap) over the tokens that differ
+        diff = tok != tr
+        n = int(diff.sum())
+        return (n, float(gap[diff].max()) if n else 0.0,
+                float((tol - gap)[diff].min()) if n else None)
+
+    n_diff, max_gap, margin = margin_of(tk)
+    floor = {**readings(*reorder), "splits": splits}
+    floor["tokens_differ"], floor["max_gap_where_differ"], \
+        floor["gap_margin"] = margin_of(reorder[1])
+    floor["logits_max_abs_err"] = float((reorder[2] - lr).abs().max())
     res = {"B": MODEL_B, "c": MODEL_C, "ctx_lens": MODEL_CTX,
            "tokens": tk.numel(), "tokens_differ": n_diff,
-           "max_gap_where_differ": float(gap[diff].max()) if n_diff else 0.0,
+           "max_gap_where_differ": max_gap,
            "min_gap": float(gap.min()), "gap_margin": margin,
            "logits_std_plain": lr_std,
            "logits_max_abs_err": float((lk - lr).abs().max()),
            "conf_max_abs_err": float((ck - cr).abs().max()),
            "conf_plain_max": float(cr.max()), "kernel_vs_plain": sound,
            "control_skew": CONTROL_SKEW, "control_vs_plain": ctl,
+           "plain_split_vs_plain": floor,
            "limits": MODEL_LIMITS, "control_breaks": CONTROL_BREAKS}
     log(f"model decode_step_paged (B {MODEL_B}, c {MODEL_C}, ctx "
         f"{MODEL_CTX}, {cfg.n_layers} layers, {cfg.compute_dtype}): tokens "
@@ -419,7 +588,15 @@ def model_phase(model, params, pool, seed: int) -> dict:
         f"{res['conf_max_abs_err']:.3e}")
     for key, lim in MODEL_LIMITS.items():
         log(f"  {key}: kernel {sound[key]:.4f}  control (acc x "
-            f"{1 + CONTROL_SKEW}) {ctl[key]:.4f}  limit {lim}")
+            f"{1 + CONTROL_SKEW}) {ctl[key]:.4f}  plain split version "
+            f"{floor[key]:.4f}  limit {lim}")
+    log(f"  noise floor, the plain split version ({splits} splits) against "
+        f"the plain version: tokens differ {floor['tokens_differ']}, "
+        f"largest gap where they differ {floor['max_gap_where_differ']:.4f},"
+        f" least margin {floor['gap_margin']}, logits max abs err "
+        f"{floor['logits_max_abs_err']:.4f}")
+    res["gap_sweep"] = sweep_margins(model_paths(cpa), dispatch, tfm,
+                                     margin_of)
     if n_diff and not margin > 0:
         raise AssertionError("model: a token differs where its top-1/top-2 "
                              "logit gap exceeds the bf16 tolerance")
@@ -433,6 +610,49 @@ def model_phase(model, params, pool, seed: int) -> dict:
                                  f"limit cannot see a {CONTROL_SKEW:.0%} "
                                  f"error")
     return res
+
+
+def model_paths(cpa):
+    """(name, impl, attention function) of each gap-sweep path."""
+    import torch
+
+    kern = [(f"tensor_core S {n}", "kernel",
+             lambda *a, n=n, **k: cpa.paged_chunk_attention_kernel(
+                 *a, body="tensor_core", splits=n, **k))
+            for n in SWEEP_SPLITS]
+    kern.append(("cuda_core", "kernel",
+                 lambda *a, **k: cpa.paged_chunk_attention_kernel(
+                     *a, body="cuda_core", **k)))
+    plain = [(f"plain split S {n}", "ref",
+              lambda *a, n=n, **k: cpa.paged_chunk_split_ref(*a, splits=n,
+                                                             **k))
+             for n in SWEEP_PLAIN_SPLITS]
+    plain.append(("plain, P rounded to bf16", "ref",
+                  lambda *a, **k: cpa.paged_chunk_ref(
+                      *a, p_dtype=torch.bfloat16, **k)))
+    return kern + plain
+
+
+def sweep_margins(paths, dispatch, tfm, margin_of) -> list[dict]:
+    """The gap check's reading for each path: the decode dispatch with its
+    paged attention (kernel path) or its plain attention (plain path)
+    replaced by the path's function."""
+    out = []
+    for name, impl, fn in paths:
+        slot = "paged_chunk_attention" if impl == "kernel" else \
+            "paged_chunk_ref"
+        keep = getattr(tfm, slot)
+        setattr(tfm, slot, fn)
+        try:
+            tok = dispatch(impl)[1]
+        finally:
+            setattr(tfm, slot, keep)
+        n, gap, margin = margin_of(tok)
+        out.append({"path": name, "tokens_differ": n,
+                    "max_gap_where_differ": gap, "gap_margin": margin})
+        log(f"  gap sweep, {name}: tokens differ {n}, largest gap where "
+            f"they differ {gap:.4f}, margin {margin}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -735,7 +955,7 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
     undo = record_gaps(be, gaps) if wave else (lambda: None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cpa.LAUNCHES = bda.LAUNCHES = 0
+    cpa.LAUNCHES = cpa.MERGE_LAUNCHES = bda.LAUNCHES = 0
     t0 = time.perf_counter()
     try:
         rep = eng.run(list(reqs))
@@ -744,6 +964,7 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
         undo()
     wall = time.perf_counter() - t0
     launches, bd_launches = cpa.LAUNCHES, bda.LAUNCHES
+    merges = cpa.MERGE_LAUNCHES
     delattr(model, prefill_fn)
     del model.decode_step_paged
 
@@ -754,7 +975,7 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
     res = {"mode": mode, "requests": len(rep.metrics),
            "tokens_committed": tokens, "decode_dispatches": n_dec,
            "prefill_dispatches": n_pre, "kernel_launches": launches,
-           "bd_kernel_launches": bd_launches,
+           "merge_launches": merges, "bd_kernel_launches": bd_launches,
            "prefill_shapes": shapes["prefill"],
            "host_bytes_per_decode_dispatch": dec_bytes / max(n_dec, 1),
            "wall_s": wall, "tok_per_s": tokens / wall,
@@ -763,7 +984,8 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
            "batches": sorted({b for b, _ in shapes["decode"]})}
     log(f"serve {mode}: {res['requests']} requests finished, {tokens} "
         f"tokens committed, {n_dec} decode + {n_pre} prefill dispatches, "
-        f"{launches} paged + {bd_launches} block-diffusion kernel launches, "
+        f"{launches} paged ({merges} with a split merge) + {bd_launches} "
+        f"block-diffusion kernel launches, "
         f"prefill shapes {sorted(set(shapes['prefill']))}, "
         f"{res['host_bytes_per_decode_dispatch']:.1f}"
         f" host bytes per decode dispatch, {wall:.3f} s wall, "
@@ -782,6 +1004,8 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
         (wave or launches == cfg.n_layers * (n_dec + n_pre),
          f"{launches} kernel launches != {cfg.n_layers} x {n_dec + n_pre} "
          f"dispatches"),
+        (merges <= launches, f"{merges} merge launches > {launches} paged "
+         f"launches"),
         (wave or bd_launches == 0,
          f"{bd_launches} block-diffusion launches in a chunked run"),
         (not wave or launches == cfg.n_layers * n_dec,
@@ -889,12 +1113,14 @@ def main() -> int:
     libs = build.build(build.all_sources())
     build_s = time.perf_counter() - t0
     log(f"built {sorted(libs)} in {build_s:.2f} s")
-    for path in libs.values():
-        for line in Path(str(path) + ".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+    ptxas = [r for path in libs.values()
+             for r in ptxas_report(Path(str(path) + ".log").read_text())]
+    for r in ptxas:
+        log(f"  ptxas: {r['kernel']}: {r['registers']} registers, "
+            f"{r['spill_bytes']} bytes spilled")
 
     kern_rows = kernel_phase(args.seed)
+    merge_res = merge_phase(args.seed)
     bd_rows = bd_kernel_phase(args.seed)
     torch.cuda.empty_cache()
 
@@ -937,12 +1163,14 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/chunked_paged_attn.cu",
         "replaces": "src/repro/kernels/chunked_paged_attn.py:85",
         "launches": sum(r["kernel_launches"] for r in runs),
+        "merge_launches": sum(r["merge_launches"] for r in runs),
         "max_abs_err": max(r["max_abs_err"] for r in kern_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
+        "ms_cuda_core": head["ms_cuda_core"], "splits": head["splits"],
         "shape": head["shape"],
-        "shapes": kern_rows,
+        "shapes": kern_rows, "merge": merge_res,
     }, {
         "name": "block_diffusion_attention",
         "route": "cuda",
@@ -954,13 +1182,15 @@ def main() -> int:
         "bound_ms": bd_rows[0]["bound_ms"],
         "bound_by": bd_rows[0]["bound_by"],
         "library_ms": bd_rows[0]["library_ms"],
+        "ms_cuda_core": bd_rows[0]["ms_cuda_core"], "splits": 1,
         "shape": bd_rows[0]["shape"],
         "shapes": bd_rows,
     }]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"card": card, "build_s": build_s, "kernels": kernels,
+            {"card": card, "build_s": build_s, "ptxas": ptxas,
+             "kernels": kernels,
              "model": model_res, "profile": profile_res,
              "prefill_model": prefill_res, "serve": runs,
              "wave_vs_chunked": wave_vs_chunked}, indent=1))

@@ -8,16 +8,19 @@ query ``i`` sees key ``j`` when ``j // block_size <= i // block_size`` and
 ``j < lengths[b]`` — with the output in q's dtype.  It is what wave prefill
 (``TransformerLM.prefill_paged``) runs once per layer; ``block_size`` 1 is
 the causal mask of the AR configurations.  The kernel is CUDA C++ for
-``sm_90a`` (``csrc/block_diffusion_attn.cu``), built with nvcc at first use
-and bound through ctypes (:mod:`repro_torch.kernels.build`).
+``sm_90a`` (``csrc/block_diffusion_attn.cu`` with the shared tile
+``csrc/attn_tile.cuh``), built with nvcc at first use and bound through
+ctypes (:mod:`repro_torch.kernels.build`).
 
 What bounds it on the H100: at the SDAR-8B wave shape the live work is
-~4·D·H·Σ(visible keys) FLOPs against a few tens of MB of q, k, v and out,
-so the operations bound it.  The first design here is deliberately simple
-(see the source note): fp32 FMAs on the CUDA cores, GQA heads folded into
-64-row tiles without copying K/V, K/V tiles staged through shared memory,
-and tiles past the block diagonal skipped.  Tensor cores, TMA and split
-key ranges are later work.
+~4·D·H·Σ(visible keys) FLOPs against a few tens of MB of q, k, v and out;
+the work belongs on the tensor cores.  The bf16 body
+(``body="tensor_core"``) runs QK^T and PV there (mma.sync, bf16 in, fp32
+accumulate) on 64-row tiles with the GQA heads folded into the rows, K/V
+tiles by cp.async into a two-stage ring, tiles past the block diagonal
+skipped, and the longest row tiles launched first.
+float32, and bf16 under ``body="cuda_core"``, run the first design: fp32
+FMAs on the CUDA cores.  wgmma, TMA and a persistent grid are later work.
 
 ``LAUNCHES`` counts kernel launches (only the CUDA path adds to it), so a
 run can show that its main path went through the kernel.
@@ -35,6 +38,7 @@ from repro_torch.kernels.ref import block_diffusion_ref
 
 LAUNCHES = 0
 HEAD_DIMS = (8, 16, 32, 64, 128)
+BODIES = ("auto", "tensor_core", "cuda_core")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROWS = 64            # rows (positions × grouped heads) per thread block
 _MAX_GRID_Z = 65535
@@ -46,7 +50,7 @@ def _lib():
     lib = build.load("block_diffusion_attn")
     fn = lib.block_diffusion_attn
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _P]
+        fn.argtypes = [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
         fn.restype = _I
     return fn
 
@@ -57,13 +61,19 @@ def _check(cond: bool, msg: str):
 
 
 def block_diffusion_attention_kernel(q, k, v, lengths, *, block_size: int,
-                                     scale: float | None = None):
+                                     scale: float | None = None,
+                                     body: str = "auto"):
     """Launch the CUDA kernel (CUDA tensors only; raises on anything the
     kernel does not take — no fallback).
 
     q [B,T,H,D]; k/v [B,T,KVH,D], contiguous, same dtype as q (float32 or
     bfloat16), D in HEAD_DIMS, H a multiple of KVH; lengths [B] integer.
     Any T and any ``block_size >= 1``.  Returns [B,T,H,D] in q's dtype.
+
+    ``body`` forces a design, to time one against the other (the model
+    path passes none): "auto" runs "tensor_core" for bfloat16 and
+    "cuda_core" for float32; "cuda_core" forces the first design in
+    bfloat16.
     """
     global LAUNCHES
     B, T, H, D = q.shape
@@ -75,6 +85,11 @@ def block_diffusion_attention_kernel(q, k, v, lengths, *, block_size: int,
     _check(k.dtype == q.dtype and v.dtype == q.dtype,
            "q, k and v must share one dtype")
     _check(D in HEAD_DIMS, f"head_dim {D} not in {HEAD_DIMS}")
+    _check(body in BODIES, f"body {body!r} not in {BODIES}")
+    if body == "auto":
+        body = "tensor_core" if q.dtype == torch.bfloat16 else "cuda_core"
+    _check(body == "cuda_core" or q.dtype == torch.bfloat16,
+           "the tensor_core body takes bfloat16 only")
     _check(k.dim() == 4 and tuple(k.shape[:2]) == (B, T)
            and k.shape[3] == D and tuple(v.shape) == tuple(k.shape),
            f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} disagree with q "
@@ -100,7 +115,7 @@ def block_diffusion_attention_kernel(q, k, v, lengths, *, block_size: int,
     # a block of T or more keys is one block: the same mask, in an int
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
                  out.data_ptr(), B, T, H, KVH, D, min(int(block_size), T),
-                 scale, _DTYPES[q.dtype], stream)
+                 scale, _DTYPES[q.dtype], int(body == "tensor_core"), stream)
     if err != 0:
         raise RuntimeError(f"block_diffusion_attn launch failed: CUDA error "
                            f"{err}")

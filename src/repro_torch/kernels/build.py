@@ -3,8 +3,9 @@ interface, loaded with ctypes.
 
 Each source under ``kernels/csrc/`` compiles with one ``nvcc`` call for
 ``sm_90a`` into ``build/repro_torch/<stem>-<hash>.so`` at the repository
-root (git-ignored).  The hash covers the source bytes and the flags, so an
-edited source rebuilds and an unchanged one is reused.  :func:`build`
+root (git-ignored).  The hash covers the source bytes, every header
+(``*.cuh``) beside it and the flags, so an edited source or shared header
+rebuilds and an unchanged one is reused.  :func:`build`
 starts every missing compile at once and waits for all of them.  Nothing
 is built when a module is imported: the first launch builds.
 """
@@ -36,6 +37,8 @@ def nvcc_path() -> str:
 
 def lib_path(source: Path) -> Path:
     h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 

@@ -10,28 +10,37 @@
 //   out [B,T,H,D] in q's dtype = acc / max(l, 1e-30), so a row with no
 //   visible key (a batch-padding entry with lengths 0) is exactly 0.
 //
-// Design (simple first; the grid of the chunked paged kernel):
-//   grid (B, KVH, ceil(T*G / 64)).  GQA without copies: the G query heads
-//   of one KV head are folded into the block's rows, position-major (row
-//   r -> position r / G, head g = r % G), so a 64-row tile covers 64/G
-//   consecutive positions of every head that shares the K/V it stages; the
-//   Pallas wrapper's G-fold jnp.repeat of K and V is gone.  Block-causal
-//   tile skip: a tile whose last position is t_hi reads keys only below
-//   min(lengths[b], (t_hi/bs + 1)*bs), the `pl.when` skip of the Pallas
-//   body; inside it each row masks at its own limit min(lengths[b],
-//   (t/bs + 1)*bs).  Any T and any block size: the ragged edges are masked
-//   here, not asserted away.  K and V tiles of 32 keys (one per lane) are
-//   staged in shared memory as fp32; each warp owns 8 rows and keeps their
-//   online-softmax state and accumulator in fp32 registers.  QK^T and PV
-//   are fp32 FMAs: no library call, no tensor cores.
-//
 // Bound: at the SDAR-8B wave shape (T 512, bs 32) the live work is
-//   4*D*H*sum(visible keys) FLOPs (~18 GFLOP a layer) against ~25 MB of
-//   q, k, v and out, so the tensor cores (989 TFLOP/s bf16) would bound it
-//   above the bytes.  This design runs on the CUDA cores instead (67
-//   TFLOP/s fp32) and re-reads K/V once per row tile (from L2 when the
-//   tiles of one (b, kv head) run together).  wgmma tiles, TMA loads and
-//   splitting long key ranges across blocks are later work.
+//   4*D*H*sum(visible keys) FLOPs (~13 GFLOP a layer) against ~25 MB of q,
+//   k, v and out; at T 2048 the FLOPs bound it (989 TFLOP/s bf16 on the
+//   tensor cores).  Either way the work belongs on the tensor cores.
+//
+// Both bodies share the grid (B, KVH, ceil(T*G / 64)).  GQA without copies:
+// the G query heads of one KV head fold into a block's rows, position-major
+// (row r -> position r / G, head g = r % G), so a 64-row tile covers 64/G
+// positions of every head that shares the K/V it stages.  Block-causal
+// tile skip: a tile whose last position is t_hi reads keys only below
+// min(lengths[b], (t_hi/bs + 1)*bs), the `pl.when` skip of the Pallas body;
+// each row masks at its own limit min(lengths[b], (t/bs + 1)*bs).  Any T
+// and any block size: ragged edges are masked, not asserted away.
+//
+// bf16, body "tensor_core" (the default): 4 warps x 16 rows on the shared
+// tile of attn_tile.cuh: S = QK^T and O += PV by mma.sync.m16n8k16 (bf16
+// in, fp32 accumulate), Q in registers, K/V tiles of 64 keys by cp.async
+// into a two-stage ring (one barrier a tile), P kept in registers and
+// rounded to bf16 as the Pallas body does.  A warp skips the products of a
+// tile that lies past its last row's limit.  Three blocks an SM: at the
+// wave shape a row tile walks only a few K/V tiles, so much of a block's
+// life is its first load, which the other blocks' compute covers.  The
+// grid's z axis is walked from the last row tile to the first, so the
+// tiles with the most keys start first and the short ones fill in behind
+// them.  Left for later: wgmma with TMA loads and a persistent grid.
+//
+// float32, and bf16 under body "cuda_core": the first design, unchanged.
+// K and V tiles of 32 keys (one per lane) are staged in shared memory as
+// fp32; each warp owns 8 rows and keeps their online-softmax state and
+// accumulator in fp32 registers; QK^T and PV are fp32 FMAs.  TF32 tensor
+// cores would miss the fp32 tolerance (2e-5), so fp32 stays here.
 //
 // Numerics as the Pallas body: fp32 scores, fp32 online softmax with the
 // finite sentinel -1e30, masked probabilities set to 0 (so a masked tile
@@ -42,9 +51,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_tile.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using attn_tile::kNegInf;
+
+// ---------------------------------------------------------------------------
+// body "cuda_core": fp32 FMAs (float32, and bf16 when forced)
+// ---------------------------------------------------------------------------
+
+
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRPW = 8;              // rows per warp
@@ -266,9 +283,10 @@ block_diffusion_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* lengths, void* out, int B, int T_len, int H,
-                   int KVH, int bs, float scale, cudaStream_t stream) {
+cudaError_t launch_cuda_core(const void* q, const void* k, const void* v,
+                             const void* lengths, void* out, int B,
+                             int T_len, int H, int KVH, int bs, float scale,
+                             cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   auto kern = block_diffusion_attn_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -283,14 +301,157 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+
+
+// ---------------------------------------------------------------------------
+// body "tensor_core": bf16 on the shared mma.sync tile
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kMmaRows = kMmaWarps * attn_tile::kRows;  // rows per block
+// Blocks an SM holds: the short row tiles of a wave are mostly prologue
+// (first K/V tile in flight), so three let two compute while one waits.
+constexpr int kMmaBlocksPerSM = 3;
+
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  // K and V rings of two 64-key tiles each (Q lives in registers)
+  return sizeof(__nv_bfloat16) * 4 * size_t(attn_tile::Geom<D>::kTileElems);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, kMmaBlocksPerSM)
+block_diffusion_attn_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                const int* __restrict__ lengths,
+                                __nv_bfloat16* __restrict__ out, int T_len,
+                                int H, int KVH, int bs, float scale) {
+  using Gm = attn_tile::Geom<D>;
+  using attn_tile::kKeys;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* v_s = k_s + 2 * Gm::kTileElems;  // [2][kKeys][kStride] each
+
+  const int b = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int zi = gridDim.z - 1 - blockIdx.z;  // the longest row tiles first
+  const int G = H / KVH;
+  const int R = G * T_len;
+  const int row0 = zi * kMmaRows;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int len = max(0, min(lengths[b], T_len));
+  const int kend = key_limit((min(row0 + kMmaRows, R) - 1) / G, bs, len);
+  const int n_tiles = (kend + kKeys - 1) / kKeys;
+
+  const int wrow = row0 + warp * attn_tile::kRows;
+  const int r0 = wrow + (lane >> 2), r1 = r0 + 8;
+  attn_tile::Warp<D> w;
+  w.init(r0 < R ? key_limit(r0 / G, bs, len) : 0,
+         r1 < R ? key_limit(r1 / G, bs, len) : 0);
+  // the warp's largest limit is its last live row's
+  const int wlim =
+      wrow < R ? key_limit((min(wrow + attn_tile::kRows, R) - 1) / G, bs, len)
+               : 0;
+  auto q_row = [&](int gr) -> const __nv_bfloat16* {
+    if (gr >= R) return nullptr;
+    return q + ((size_t(b) * T_len + gr / G) * H + kvh * G + gr % G) * D;
+  };
+
+  if (n_tiles > 0) {
+    const size_t kv_row = size_t(KVH) * D;  // elements between positions
+    const __nv_bfloat16* kb = k + size_t(b) * T_len * kv_row + size_t(kvh) * D;
+    const __nv_bfloat16* vb = v + size_t(b) * T_len * kv_row + size_t(kvh) * D;
+    auto load_kv = [&](int i, int st) {
+      const int key0 = i * kKeys;
+      attn_tile::load_rows<D, kMmaThreads>(
+          k_s + st * Gm::kTileElems, kKeys, k,
+          [&](int j) -> const __nv_bfloat16* {
+            return key0 + j < kend ? kb + size_t(key0 + j) * kv_row : nullptr;
+          },
+          tid);
+      attn_tile::load_rows<D, kMmaThreads>(
+          v_s + st * Gm::kTileElems, kKeys, v,
+          [&](int j) -> const __nv_bfloat16* {
+            return key0 + j < kend ? vb + size_t(key0 + j) * kv_row : nullptr;
+          },
+          tid);
+    };
+    load_kv(0, 0);
+    attn_tile::cp_async_commit();
+    if (wrow < R) w.load_q(q_row(r0), q_row(r1), lane);
+    const float scale2 = scale * attn_tile::kLog2e;
+    for (int i = 0; i < n_tiles; ++i) {
+      attn_tile::cp_async_wait<0>();  // tile i landed
+      __syncthreads();  // ... for every thread; tile i-1's buffer is free
+      if (i + 1 < n_tiles) {
+        load_kv(i + 1, (i + 1) & 1);
+        attn_tile::cp_async_commit();
+      }
+      if (i * kKeys < wlim)
+        w.step(k_s + (i & 1) * Gm::kTileElems, v_s + (i & 1) * Gm::kTileElems,
+               i * kKeys, scale2, lane);
+    }
+  }
+  w.finish();
+
+  const int tig = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int gr = r ? r1 : r0;
+    if (gr >= R) continue;
+    const size_t o =
+        ((size_t(b) * T_len + gr / G) * H + kvh * G + gr % G) * D;
+    const float den = fmaxf(w.l[r], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < Gm::kNO; ++n) {
+      const int d = n * 8 + 2 * tig;
+      if (d < D)
+        *reinterpret_cast<__nv_bfloat162*>(out + o + d) =
+            __floats2bfloat162_rn(w.o[n][2 * r] / den,
+                                  w.o[n][2 * r + 1] / den);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_tensor_core(const void* q, const void* k, const void* v,
+                               const void* lengths, void* out, int B,
+                               int T_len, int H, int KVH, int bs, float scale,
+                               cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<D>();
+  auto kern = block_diffusion_attn_mma_kernel<D>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (attr != cudaSuccess) return attr;
+  const int R = (H / KVH) * T_len;
+  const dim3 grid(B, KVH, (R + kMmaRows - 1) / kMmaRows);
+  kern<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
+      static_cast<__nv_bfloat16*>(out), T_len, H, KVH, bs, scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
-cudaError_t launch_dim(int D, const void* q, const void* k, const void* v,
-                       const void* lengths, void* out, int B, int T_len, int H,
-                       int KVH, int bs, float scale, cudaStream_t stream) {
-#define REPRO_HEAD_DIM(d)                                                    \
-  if (D == d)                                                                \
-    return launch<T, d>(q, k, v, lengths, out, B, T_len, H, KVH, bs, scale, \
-                        stream);
+cudaError_t launch_dim(int D, int body, const void* q,
+                       const void* k, const void* v, const void* lengths,
+                       void* out, int B, int T_len, int H, int KVH, int bs,
+                       float scale, cudaStream_t stream) {
+#define REPRO_HEAD_DIM(d)                                                   \
+  if (D == d) {                                                             \
+    if (body == 0)                                                          \
+      return launch_cuda_core<T, d>(q, k, v, lengths, out, B, T_len, H,     \
+                                    KVH, bs, scale, stream);                \
+    if constexpr (sizeof(T) == 2)                                           \
+      return launch_tensor_core<d>(q, k, v, lengths, out, B, T_len, H, KVH, \
+                                   bs, scale, stream);                      \
+    return cudaErrorInvalidValue;                                           \
+  }
   REPRO_HEAD_DIM(8)
   REPRO_HEAD_DIM(16)
   REPRO_HEAD_DIM(32)
@@ -303,19 +464,21 @@ cudaError_t launch_dim(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  head_dim: 8, 16, 32, 64 or 128.
-// block_size >= 1.  Returns the CUDA error of the launch (0 on success), or
+// block_size >= 1.  body: 0 the fp32 CUDA-core body, 1 the tensor-core body
+// (bfloat16 only).  Returns the CUDA error of the launch (0 on success), or
 // -1 for a dtype this library was not built for.
 extern "C" int block_diffusion_attn(const void* q, const void* k,
                                     const void* v, const void* lengths,
                                     void* out, int B, int T_len, int H,
                                     int KVH, int D, int block_size,
-                                    float scale, int dtype, void* stream) {
+                                    float scale, int dtype, int body,
+                                    void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_dim<float>(D, q, k, v, lengths, out, B, T_len, H, KVH,
-                             block_size, scale, st);
+    return launch_dim<float>(D, body, q, k, v, lengths, out, B, T_len, H,
+                             KVH, block_size, scale, st);
   if (dtype == 1)
-    return launch_dim<__nv_bfloat16>(D, q, k, v, lengths, out, B, T_len, H,
-                                     KVH, block_size, scale, st);
+    return launch_dim<__nv_bfloat16>(D, body, q, k, v, lengths, out, B,
+                                     T_len, H, KVH, block_size, scale, st);
   return -1;
 }

@@ -11,27 +11,50 @@
 //   kvh*G + g.  A row with ctx 0 emits acc 0, m = -1e30, l 0 (the finite
 //   sentinel keeps the downstream merge free of exp(-inf - -inf) = NaN).
 //
-// Design (simple first):
-//   grid (B, KVH, ceil(G*c / BR)).  GQA folds the G query heads of one KV
-//   head with the c chunk rows into R = G*c rows; each block owns BR of them
-//   (row r -> chunk row r / G, head g = r % G), so a prefill chunk of
-//   thousands of rows tiles over many blocks instead of one giant tile.
-//   Each block loads its own ctx_lens[b] and walks only the live keys in
-//   tiles of 32 (one key per lane), reading each key's page from
-//   block_tables; padded table entries past ctx are never read.  K and V
-//   tiles are staged in shared memory as fp32; every warp owns RPW rows and
-//   keeps their online-softmax state (m, l) and accumulator in fp32
-//   registers.  QK^T and PV are fp32 FMAs in this body: no library call, no
-//   tensor cores.
-//
 // Bound: at decode shapes the work is ~4*ctx*c*H*D FLOPs against ctx*KVH*D*2
-//   KV bytes per request; on the H100 the KV bytes read from HBM (3.35 TB/s)
-//   bound it, since the tensor cores would finish the FLOPs sooner.  This
-//   design does not reach that bound: fp32 FMAs on the CUDA cores (67
-//   TFLOP/s) make it compute-bound well above it, and each of the
-//   ceil(G*c/BR) row blocks of one (b, kvh) re-reads the same pages (from L2
-//   when they run together).  Tensor-core tiles (wgmma), TMA page loads and
-//   splitting long contexts across blocks are later work.
+//   KV bytes per request, so the KV bytes read from HBM (3.35 TB/s) bound
+//   it; the tensor cores would finish the FLOPs sooner.  What keeps a
+//   kernel from that bound is too few blocks in flight (B*KVH = 64 at
+//   SDAR-8B decode, for 132 SMs), one long row holding the grid while the
+//   short ones idle, and loads that do not overlap compute.
+//
+// bf16, body "tensor_core" (the default):
+//   grid (ceil(G*c / BR), KVH, B*S).  GQA folds the G query heads of one KV
+//   head with the c chunk rows into R = G*c rows, position-major (row r ->
+//   chunk row r / G, head g = r % G); one block holds up to BR = 128 of them
+//   (8 warps x 16; 4 warps when R <= 64), so at decode every page is read
+//   once per split, not once per row tile.  Split-KV decided on the device:
+//   the block with split s of row b reads ctx_lens[b] itself and takes the
+//   s-th of S equal, 64-key-aligned parts of that row's live keys, so every
+//   split of a long row does the same work and a split past a short row's
+//   context is done at once.  S comes from shapes alone (the wrapper never
+//   reads a device tensor).  The block first copies its slice
+//   of the block table into shared memory; each 64-key tile is then a
+//   cp.async gather of 256-byte page rows into the two-stage ring of
+//   attn_tile.cuh, and QK^T and PV run on the tensor cores (mma.sync
+//   m16n8k16, bf16 in, fp32 accumulate), with Q in registers.  P enters PV
+//   in three bf16 parts (kPParts), so it keeps fp32 precision where the
+//   Pallas body rounds it to bf16: these partials feed every layer of every
+//   decode dispatch, and through 36 layers of SDAR-8B the bf16 rounding of
+//   P (even in a plain implementation) flips committed tokens whose top-1
+//   and top-2 logits lie further apart than chip_smoke.py's model phase
+//   allows, while fp32 P stays inside it at every split count.  The three
+//   parts cost the PV product 3x its mma.sync work.  With S > 1 the live
+//   splits write
+//   their partials to a scratch [S,B,c,H,D+2] (an empty split writes
+//   nothing) and the second kernel here merges them on the card: the exact
+//   log-sum-exp merge of merge_flash_partials, one warp a row, reading only
+//   the row's live splits.  At c 1 only G = 4 of a warp's 16 rows are
+//   live; the kernel is byte-bound there, so the idle rows cost little.
+//   Left for later: wgmma (64-row warpgroup tiles), TMA, a persistent grid
+//   that would fold the merge into the last split to finish.
+//
+// float32, and bf16 under body "cuda_core": the first design, unchanged.
+//   grid (B, KVH, ceil(G*c / BR)), BR = 8 * RPW rows; each block walks its
+//   row's live keys in tiles of 32 (one key per lane), K and V staged in
+//   shared memory as fp32, each warp owning RPW rows (1 or 8, picked by the
+//   row count or forced) with fp32 FMAs on the CUDA cores.  TF32 tensor
+//   cores would miss the fp32 tolerance (2e-5), so fp32 stays here.
 //
 // Numerics: as the Pallas body, the probabilities are rounded to v's type
 // before PV (e.astype(v.dtype)) while l sums the unrounded values.
@@ -40,9 +63,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_tile.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using attn_tile::kNegInf;
+
+// ---------------------------------------------------------------------------
+// body "cuda_core": fp32 FMAs (float32, and bf16 when forced)
+// ---------------------------------------------------------------------------
+
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kKeys = 32;  // keys per tile: one per lane
@@ -246,10 +276,11 @@ paged_chunk_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 }
 
 template <typename T, int D, int RPW>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* tables, const void* ctx, void* acc, void* m,
-                   void* l, int B, int c, int H, int KVH, int ps, int n_slots,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch_cuda_core(const void* q, const void* k, const void* v,
+                             const void* tables, const void* ctx, void* acc,
+                             void* m, void* l, int B, int c, int H, int KVH,
+                             int ps, int n_slots, float scale,
+                             cudaStream_t stream) {
   constexpr int BR = kWarps * RPW;
   constexpr size_t smem = smem_bytes<D, RPW>();
   auto kern = paged_chunk_attn_kernel<T, D, RPW>;
@@ -278,24 +309,284 @@ cudaError_t launch_rows(int rpw, int rows, const void* q, const void* k,
   // so each staged K/V tile serves 64 rows.  1 or 8 forces a tiling.
   if (rpw == 0) rpw = rows <= kWarps ? 1 : 8;
   if (rpw == 1)
-    return launch<T, D, 1>(q, k, v, tables, ctx, acc, m, l, B, c, H, KVH, ps,
-                           n_slots, scale, stream);
+    return launch_cuda_core<T, D, 1>(q, k, v, tables, ctx, acc, m, l, B, c,
+                                     H, KVH, ps, n_slots, scale, stream);
   if (rpw == 8)
-    return launch<T, D, 8>(q, k, v, tables, ctx, acc, m, l, B, c, H, KVH, ps,
-                           n_slots, scale, stream);
+    return launch_cuda_core<T, D, 8>(q, k, v, tables, ctx, acc, m, l, B, c,
+                                     H, KVH, ps, n_slots, scale, stream);
   return cudaErrorInvalidValue;
 }
 
+
+// ---------------------------------------------------------------------------
+// body "tensor_core": bf16 on the shared mma.sync tile, split-KV
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
+// P enters PV in three bf16 parts (fp32 precision): see the note above.
+constexpr int kPParts = 3;
+
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  // K and V rings of two 64-key tiles each (Q lives in registers); the
+  // table slice follows
+  return sizeof(__nv_bfloat16) * 4 * size_t(attn_tile::Geom<D>::kTileElems);
+}
+
+// Partials of split s go to acc + s*split_stride + row*acc_stride (D
+// floats) and m/l + s*split_stride + row*ml_stride, row = (b*c + ci)*H + h:
+// the final layout when S is 1, the [S,B,c,H,D+2] scratch otherwise.
+template <int D, int NW>
+__global__ void __launch_bounds__(NW * 32)
+paged_chunk_attn_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k_pages,
+                            const __nv_bfloat16* __restrict__ v_pages,
+                            const int* __restrict__ block_tables,
+                            const int* __restrict__ ctx_lens,
+                            float* __restrict__ acc, float* __restrict__ m_out,
+                            float* __restrict__ l_out, long long acc_stride,
+                            long long ml_stride, long long split_stride, int c,
+                            int H, int KVH, int ps, int n_slots, int S,
+                            float scale) {
+  using Gm = attn_tile::Geom<D>;
+  using attn_tile::kKeys;
+  constexpr int NT = NW * 32;
+  constexpr int BR = NW * attn_tile::kRows;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* v_s = k_s + 2 * Gm::kTileElems;  // [2][kKeys][kStride] each
+  int* tab_s = reinterpret_cast<int*>(v_s + 2 * Gm::kTileElems);
+
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z / S;
+  const int s = blockIdx.z % S;
+  const int G = H / KVH;
+  const int R = G * c;
+  const int row0 = blockIdx.x * BR;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  // this split's keys: the s-th of S equal 64-key-aligned parts of the row
+  const int ctx = max(0, min(ctx_lens[b], n_slots * ps));
+  const int row_tiles = (ctx + kKeys - 1) / kKeys;
+  const int per = (row_tiles + S - 1) / S;
+  const int t_lo = s * per;
+  const int n_tiles = min(row_tiles, t_lo + per) - t_lo;
+  const int kbeg = t_lo * kKeys;
+  const int kend = min(ctx, kbeg + n_tiles * kKeys);
+
+  // with S > 1 the merge reads only live splits, so an empty one is done
+  if (n_tiles <= 0 && S > 1) return;
+
+  const int wrow = row0 + warp * attn_tile::kRows;
+  const int r0 = wrow + (lane >> 2), r1 = r0 + 8;
+  attn_tile::Warp<D, kPParts> w;
+  w.init(r0 < R ? kend : 0, r1 < R ? kend : 0);
+
+  if (n_tiles > 0) {
+    const int* table = block_tables + size_t(b) * n_slots;
+    const int slot0 = kbeg / ps;
+    const int n_tab = (kend - 1) / ps - slot0 + 1;
+    for (int i = tid; i < n_tab; i += NT) tab_s[i] = table[slot0 + i];
+    __syncthreads();  // the table slice is visible
+    auto load_kv = [&](int i, int st) {
+      const int key0 = kbeg + i * kKeys;
+      auto row = [&](const __nv_bfloat16* pages, int j) {
+        const int p = key0 + j;
+        if (p >= kend) return static_cast<const __nv_bfloat16*>(nullptr);
+        const size_t page = size_t(tab_s[p / ps - slot0]);
+        return pages + ((page * ps + p % ps) * KVH + kvh) * D;
+      };
+      attn_tile::load_rows<D, NT>(
+          k_s + st * Gm::kTileElems, kKeys, k_pages,
+          [&](int j) { return row(k_pages, j); }, tid);
+      attn_tile::load_rows<D, NT>(
+          v_s + st * Gm::kTileElems, kKeys, v_pages,
+          [&](int j) { return row(v_pages, j); }, tid);
+    };
+    load_kv(0, 0);
+    attn_tile::cp_async_commit();
+    const bool live = wrow < R;
+    auto q_row = [&](int gr) -> const __nv_bfloat16* {
+      if (gr >= R) return nullptr;
+      return q + ((size_t(b) * c + gr / G) * H + kvh * G + gr % G) * D;
+    };
+    if (live) w.load_q(q_row(r0), q_row(r1), lane);
+    const float scale2 = scale * attn_tile::kLog2e;
+    for (int i = 0; i < n_tiles; ++i) {
+      attn_tile::cp_async_wait<0>();  // tile i landed
+      __syncthreads();  // ... for every thread; tile i-1's buffer is free
+      if (i + 1 < n_tiles) {
+        load_kv(i + 1, (i + 1) & 1);
+        attn_tile::cp_async_commit();
+      }
+      if (live)
+        w.step(k_s + (i & 1) * Gm::kTileElems, v_s + (i & 1) * Gm::kTileElems,
+               kbeg + i * kKeys, scale2, lane);
+    }
+  }
+  w.finish();
+
+  const int tig = lane & 3;
+  const long long so = s * split_stride;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int gr = r ? r1 : r0;
+    if (gr >= R) continue;
+    const long long row = (size_t(b) * c + gr / G) * H + kvh * G + gr % G;
+    float* a = acc + so + row * acc_stride;
+#pragma unroll
+    for (int n = 0; n < Gm::kNO; ++n) {
+      const int d = n * 8 + 2 * tig;
+      if (d < D)
+        *reinterpret_cast<float2*>(a + d) =
+            make_float2(w.o[n][2 * r], w.o[n][2 * r + 1]);
+    }
+    if (tig == 0) {
+      m_out[so + row * ml_stride] = w.m_natural(r);
+      l_out[so + row * ml_stride] = w.l[r];
+    }
+  }
+}
+
+// The merge of S split partials [S, rows, D+2] (acc, m, l) into acc
+// [rows, D], m and l [rows]: one warp a row, the exact log-sum-exp merge of
+// merge_flash_partials in its order (m_g the max, then acc and l summed
+// over s of part * exp(m_s - m_g), each product rounded before its add).
+// It reads only the row's live splits, found from ctx_lens[b] as the split
+// kernel cuts them: an empty split (which wrote nothing) would add exactly
+// 0, and a row with none is the empty partial (acc 0, m -1e30, l 0).
+template <int D>
+__global__ void __launch_bounds__(256)
+paged_chunk_attn_merge_kernel(const float* __restrict__ part,
+                              const int* __restrict__ ctx_lens,
+                              float* __restrict__ acc,
+                              float* __restrict__ m_out,
+                              float* __restrict__ l_out, int rows,
+                              int row_per_b, int ps, int n_slots, int S,
+                              long long split_stride) {
+  constexpr int PER = (D + 31) / 32;
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int ctx = max(0, min(ctx_lens[row / row_per_b], n_slots * ps));
+  const int row_tiles = (ctx + attn_tile::kKeys - 1) / attn_tile::kKeys;
+  const int per = (row_tiles + S - 1) / S;
+  const int n_live = per > 0 ? (row_tiles + per - 1) / per : 0;
+  const float* p = part + size_t(row) * (D + 2);
+  float mg = kNegInf;
+  for (int s = 0; s < n_live; ++s) mg = fmaxf(mg, p[s * split_stride + D]);
+  float a[PER], lg = 0.f;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) a[i] = 0.f;
+  for (int s = 0; s < n_live; ++s) {
+    const float* part_s = p + s * split_stride;
+    const float corr = expf(part_s[D] - mg);
+    lg = __fadd_rn(lg, __fmul_rn(part_s[D + 1], corr));
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int d = lane + 32 * i;
+      if (D % 32 == 0 || d < D)
+        a[i] = __fadd_rn(a[i], __fmul_rn(part_s[d], corr));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int d = lane + 32 * i;
+    if (D % 32 == 0 || d < D) acc[size_t(row) * D + d] = a[i];
+  }
+  if (lane == 0) {
+    m_out[row] = mg;
+    l_out[row] = lg;
+  }
+}
+
+template <int D, int NW>
+cudaError_t launch_tensor_core_nw(const void* q, const void* k, const void* v,
+                                  const void* tables, const void* ctx,
+                                  void* acc, void* m, void* l, void* scratch,
+                                  int B, int c, int H, int KVH, int ps,
+                                  int n_slots, int S, float scale,
+                                  cudaStream_t stream) {
+  constexpr int BR = NW * attn_tile::kRows;
+  auto kern = paged_chunk_attn_mma_kernel<D, NW>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return attr;
+  // the longest table slice a split can need: its tiles' slots, plus one
+  // for a tile that starts inside a page
+  constexpr int kKeys = attn_tile::kKeys;
+  const int row_tiles = (n_slots * ps + kKeys - 1) / kKeys;
+  const int per = (row_tiles + S - 1) / S;
+  const int tab = (per * kKeys + ps - 1) / ps + 1;
+  const size_t smem = mma_smem_bytes<D>() + sizeof(int) * size_t(tab);
+  if (smem > size_t(kMaxSmem)) return cudaErrorInvalidValue;
+  const int R = (H / KVH) * c;
+  const dim3 grid((R + BR - 1) / BR, KVH, B * S);
+  const long long rows = (long long)B * c * H;
+  float* a = static_cast<float*>(acc);
+  float* mo = static_cast<float*>(m);
+  float* lo = static_cast<float*>(l);
+  long long acc_stride = D, ml_stride = 1, split_stride = 0;
+  if (S > 1) {  // partials to the scratch, then the merge
+    a = static_cast<float*>(scratch);
+    mo = a + D;
+    lo = a + D + 1;
+    acc_stride = ml_stride = D + 2;
+    split_stride = rows * (D + 2);
+  }
+  kern<<<grid, NW * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(tables),
+      static_cast<const int*>(ctx), a, mo, lo, acc_stride, ml_stride,
+      split_stride, c, H, KVH, ps, n_slots, S, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return err;
+  paged_chunk_attn_merge_kernel<D>
+      <<<unsigned((rows + 7) / 8), 256, 0, stream>>>(
+          a, static_cast<const int*>(ctx), static_cast<float*>(acc),
+          static_cast<float*>(m), static_cast<float*>(l), int(rows), c * H,
+          ps, n_slots, S, split_stride);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_tensor_core(const void* q, const void* k, const void* v,
+                               const void* tables, const void* ctx, void* acc,
+                               void* m, void* l, void* scratch, int B, int c,
+                               int H, int KVH, int ps, int n_slots, int S,
+                               float scale, cudaStream_t stream) {
+  // 4 warps hold up to 64 rows (a decode chunk of up to 16 positions, and
+  // AR), 8 warps up to 128; more rows tile over the grid's x axis.
+  // pick_splits (chunked_paged_attn.py) counts resident blocks by this.
+  if ((H / KVH) * c <= 4 * attn_tile::kRows)
+    return launch_tensor_core_nw<D, 4>(q, k, v, tables, ctx, acc, m, l,
+                                       scratch, B, c, H, KVH, ps, n_slots, S,
+                                       scale, stream);
+  return launch_tensor_core_nw<D, 8>(q, k, v, tables, ctx, acc, m, l, scratch,
+                                     B, c, H, KVH, ps, n_slots, S, scale,
+                                     stream);
+}
+
 template <typename T>
-cudaError_t launch_dim(int D, int rpw, int rows, const void* q, const void* k,
-                       const void* v, const void* tables, const void* ctx,
-                       void* acc, void* m, void* l, int B, int c, int H,
-                       int KVH, int ps, int n_slots, float scale,
-                       cudaStream_t stream) {
+cudaError_t launch_dim(int D, int body, int rpw, int S, const void* q,
+                       const void* k, const void* v, const void* tables,
+                       const void* ctx, void* acc, void* m, void* l,
+                       void* scratch, int B, int c, int H, int KVH, int ps,
+                       int n_slots, float scale, cudaStream_t stream) {
+  const int rows = (H / KVH) * c;
 #define REPRO_HEAD_DIM(d)                                                    \
-  if (D == d)                                                                \
-    return launch_rows<T, d>(rpw, rows, q, k, v, tables, ctx, acc, m, l, B, \
-                             c, H, KVH, ps, n_slots, scale, stream);
+  if (D == d) {                                                              \
+    if (body == 0)                                                           \
+      return launch_rows<T, d>(rpw, rows, q, k, v, tables, ctx, acc, m, l,   \
+                               B, c, H, KVH, ps, n_slots, scale, stream);    \
+    if constexpr (sizeof(T) == 2)                                            \
+      return launch_tensor_core<d>(q, k, v, tables, ctx, acc, m, l, scratch, \
+                                   B, c, H, KVH, ps, n_slots, S, scale,      \
+                                   stream);                                  \
+    return cudaErrorInvalidValue;                                            \
+  }
   REPRO_HEAD_DIM(8)
   REPRO_HEAD_DIM(16)
   REPRO_HEAD_DIM(32)
@@ -307,24 +598,29 @@ cudaError_t launch_dim(int D, int rpw, int rows, const void* q, const void* k,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  head_dim: 8, 16, 32, 64 or 128.  rpw:
-// rows per warp, 0 (by row count), 1 or 8.  Returns the CUDA error of the
-// launch (0 on success), or -1 for a dtype this library was not built for.
+// dtype: 0 float32, 1 bfloat16.  head_dim: 8, 16, 32, 64 or 128.  body: 0
+// the fp32 CUDA-core body (rpw: rows per warp, 0 by row count, 1 or 8), 1
+// the tensor-core body (bfloat16 only) with S >= 1 splits; S > 1 needs a
+// float32 scratch of S*B*c*H*(D+2) and launches the merge kernel after the
+// split kernel.  Returns the CUDA error of the launches (0 on success), or
+// -1 for a dtype this library was not built for.
 extern "C" int paged_chunk_attn(const void* q, const void* k_pages,
                                 const void* v_pages, const void* block_tables,
                                 const void* ctx_lens, void* acc, void* m,
-                                void* l, int B, int c, int H, int KVH, int D,
-                                int ps, int n_slots, float scale, int dtype,
-                                int rpw, void* stream) {
+                                void* l, void* scratch, int B, int c, int H,
+                                int KVH, int D, int ps, int n_slots,
+                                float scale, int dtype, int body, int rpw,
+                                int splits, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = (H / KVH) * c;
+  if (splits < 1 || (splits > 1 && scratch == nullptr)) return -1;
   if (dtype == 0)
-    return launch_dim<float>(D, rpw, rows, q, k_pages, v_pages, block_tables,
-                             ctx_lens, acc, m, l, B, c, H, KVH, ps, n_slots,
-                             scale, st);
+    return launch_dim<float>(D, body, rpw, splits, q, k_pages, v_pages,
+                             block_tables, ctx_lens, acc, m, l, scratch, B, c,
+                             H, KVH, ps, n_slots, scale, st);
   if (dtype == 1)
-    return launch_dim<__nv_bfloat16>(D, rpw, rows, q, k_pages, v_pages,
-                                     block_tables, ctx_lens, acc, m, l, B, c,
-                                     H, KVH, ps, n_slots, scale, st);
+    return launch_dim<__nv_bfloat16>(D, body, rpw, splits, q, k_pages,
+                                     v_pages, block_tables, ctx_lens, acc, m,
+                                     l, scratch, B, c, H, KVH, ps, n_slots,
+                                     scale, st);
   return -1;
 }

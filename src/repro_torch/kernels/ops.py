@@ -12,24 +12,7 @@ import torch
 from repro_torch.kernels.block_diffusion_attn import \
     block_diffusion_attention
 from repro_torch.kernels.chunked_paged_attn import paged_chunk_attention
-
-
-def merge_flash_partials(parts):
-    """Merge flash partials ``[(acc, m, l), ...]`` over disjoint KV sets
-    into ONE partial ``(acc, m, l)`` — the exact log-sum-exp combine
-    (``acc = Σ e^{logit-m} v``, ``m = max logit``, ``l = Σ e^{logit-m}``).
-    An empty partial (acc 0, m = -1e30, l 0) merges to a no-op: its
-    correction factor underflows to 0, never NaN."""
-    m_g = parts[0][1]
-    for _, m, _ in parts[1:]:
-        m_g = torch.maximum(m_g, m)
-    acc_g = 0.0
-    l_g = 0.0
-    for acc, m, l in parts:
-        corr = torch.exp(m - m_g)
-        acc_g = acc_g + acc * corr[..., None]
-        l_g = l_g + l * corr
-    return acc_g, m_g, l_g
+from repro_torch.kernels.ref import merge_flash_partials
 
 
 def combine_flash_partials(parts, out_dtype=torch.float32):

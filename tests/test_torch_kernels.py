@@ -1,6 +1,8 @@
 """The port's kernel module against the JAX package: the plain
 chunked-paged-attention path (what a CPU tensor runs) vs the Pallas kernel
-in interpret mode and its jnp oracle, plus the partial merge and the
+in interpret mode and its jnp oracle, the plain split-KV version (the
+tensor-core kernel's cut of each row into splits, then the merge), the
+wrapper's split choice, the partial merge, the build's cache key and the
 device sampling op.
 
 Tolerances: fp32 as tests/test_kernels.py (m within rtol 1e-5 / atol 1e-4,
@@ -9,6 +11,8 @@ order; bf16 3e-2 relative (the kernel rounds the probabilities to bf16
 before PV, the oracle does not).
 """
 
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,8 +20,10 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import build
 from repro_torch.kernels import chunked_paged_attn as cpa
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 
 PAGED_SHAPES = [
     # B, c, H, KVH, D, page_size, n_slots  (tests/test_kernels.py)
@@ -102,6 +108,123 @@ def test_paged_chunk_attention_cuda_path_refuses_cpu_input():
     q, kp, vp, tables, lens = _torch(*_inputs(PAGED_SHAPES[0], seed=1))
     with pytest.raises(ValueError, match="CUDA"):
         cpa.paged_chunk_attention_kernel(q, kp, vp, tables, lens)
+
+
+# PAGED_SHAPES, whose tables hold one or two 64-key tiles, and one whose
+# table holds ten, so seven splits leave some live and some empty
+SPLIT_SHAPES = PAGED_SHAPES + [(2, 4, 8, 2, 64, 16, 40)]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_chunk_split_ref_matches_pallas(shape, dtype, splits):
+    """The plain split-KV version (each row's live keys cut into S equal
+    64-key-aligned parts, as the tensor-core kernel cuts them, then merged)
+    against the Pallas kernel in interpret mode and against the unsplit
+    plain version.  Row 0 has ctx 0 and must be the exact empty partial;
+    row 1 is shorter than S tiles (5 keys), so its later splits are empty."""
+    B, c, H, KVH, D, ps, n_slots = shape
+    rng = np.random.default_rng(29)
+    lens = rng.integers(1, ps * n_slots + 1, B)
+    lens[0] = 0
+    if B > 1:
+        lens[1] = 5
+    q, kp, vp, tables, lens = _inputs(shape, seed=29, lens=lens)
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    td = torch.float32 if dtype == "float32" else torch.bfloat16
+    jargs = [jnp.asarray(a, jd) for a in (q, kp, vp)] + \
+        [jnp.asarray(tables), jnp.asarray(lens)]
+    targs = _torch(q, kp, vp, tables, lens, dtype=td)
+    got = tref.paged_chunk_split_ref(*targs, splits=splits)
+    acc, m, l = got
+    assert all(t.dtype == torch.float32 for t in got)
+    _compare(got, jops.paged_chunk_attention(*jargs, interpret=True), dtype)
+    _compare(got, tref.paged_chunk_ref(*targs), dtype)
+    assert torch.all(acc[0] == 0) and torch.all(l[0] == 0)
+    assert torch.all(m[0] == -1e30)
+
+
+def test_paged_chunk_ref_rounds_p_only_when_asked():
+    """``p_dtype`` rounds the probabilities before PV as the Pallas body
+    does (``e.astype(v.dtype)``): float32 changes nothing, bf16 moves acc by
+    at most bf16 rounding of P, and m and l never move."""
+    q, kp, vp, tables, lens = _torch(*_inputs(PAGED_SHAPES[2], seed=13))
+    acc, m, l = tref.paged_chunk_ref(q, kp, vp, tables, lens)
+    same = tref.paged_chunk_ref(q, kp, vp, tables, lens,
+                                p_dtype=torch.float32)
+    assert all(torch.equal(a, b) for a, b in zip((acc, m, l), same))
+    acc_b, m_b, l_b = tref.paged_chunk_ref(q, kp, vp, tables, lens,
+                                           p_dtype=torch.bfloat16)
+    assert torch.equal(m_b, m) and torch.equal(l_b, l)
+    assert not torch.equal(acc_b, acc)
+    # |Σ (p - bf16(p)) v| <= 2^-9 Σ p |v| <= 2^-9 l max|v|
+    bound = 2 ** -9 * float(vp.abs().max()) * float(l.max())
+    assert float((acc_b - acc).abs().max()) <= bound * 1.001
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 16])
+def test_split_ranges_cut_tile_aligned_equal_parts(splits):
+    """Every row's live keys are covered once, in order, by the splits'
+    ranges; each range starts on a 64-key tile and all but the last live
+    one hold ceil(tiles / S) tiles."""
+    n_keys = 700
+    ctx = torch.tensor([0, 1, 64, 65, 300, 640, 700, 5000])
+    ranges = tref.split_ranges(ctx, n_keys, splits)
+    assert len(ranges) == splits
+    for b, n in enumerate(torch.clamp(ctx, max=n_keys).tolist()):
+        tiles = -(-n // 64)
+        per = -(-tiles // splits)
+        covered = []
+        for lo, hi in ranges:
+            lo_b, hi_b = int(lo[b]), int(hi[b])
+            assert lo_b % 64 == 0
+            if hi_b > lo_b:
+                assert hi_b - lo_b <= per * 64
+                covered.extend(range(lo_b, hi_b))
+        assert covered == list(range(n))
+
+
+def test_pick_splits_is_a_function_of_shapes():
+    """The tensor-core body's split count comes from shapes alone — plain
+    ints in, an int out, no tensor anywhere — and fills the card in whole
+    waves: about 2 x 132 blocks at the SDAR-8B decode shape (B 8, KVH 8,
+    one 8-warp row tile of G·c = 128 rows, one resident a SM, 2080 table
+    keys), twice that in AR (4-warp blocks, two resident), and 1 when the
+    table is one tile or the grid is already full."""
+    def blocks(B, c, H, KVH, ps, n_slots):
+        s = cpa.pick_splits(B, c, H, KVH, ps, n_slots)
+        assert type(s) is int and 1 <= s <= cpa.MAX_SPLITS
+        return B * KVH * -(-(H // KVH) * c // cpa.ROWS_PER_BLOCK) * s, s
+
+    assert blocks(8, 32, 32, 8, 16, 130) == (256, 4)   # SDAR-8B decode
+    assert blocks(8, 1, 32, 8, 16, 130) == (512, 8)    # AR decode
+    assert 256 <= 2 * cpa.SMS * cpa.RESIDENT[8] < 256 + 64
+    assert blocks(8, 32, 32, 8, 16, 4)[1] == 1         # one 64-key tile
+    assert blocks(8, 32, 32, 8, 16, 1)[1] == 1
+    assert blocks(8, 1, 32, 8, 16, 8)[1] == 2          # two tiles at most
+    assert blocks(64, 32, 32, 8, 16, 130)[1] == 1      # grid already full
+    assert blocks(1, 1, 32, 8, 16, 4096)[1] == cpa.MAX_SPLITS
+    # a prefill chunk of 256 positions: 8 row tiles of 128 rows
+    assert blocks(2, 256, 32, 8, 16, 48) == (256, 2)
+    assert blocks(2, 8, 8, 2, 16, 4)[1] == 1
+
+
+def test_lib_path_follows_the_shared_header(tmp_path):
+    """A library's cache key covers every header beside its source, so an
+    edit to the shared tile rebuilds both kernels (no nvcc needed)."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    sources = sorted(csrc.glob("*.cu"))
+    assert sources and (csrc / "attn_tile.cuh").exists()
+    before = [build.lib_path(s) for s in sources]
+    assert before == [build.lib_path(s) for s in sources]
+    header = csrc / "attn_tile.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = [build.lib_path(s) for s in sources]
+    assert all(a != b for a, b in zip(before, after))
+    assert all(a.name.startswith(s.stem + "-") for a, s in zip(after,
+                                                               sources))
 
 
 def test_combine_flash_partials_with_empty_partial():

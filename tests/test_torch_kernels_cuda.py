@@ -3,6 +3,10 @@ and nvcc; skipped elsewhere).  Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
+Each kernel runs under every forced variant of its dtype: the body the
+wrapper picks, the CUDA-core body, and (paged, bf16) the tensor-core body
+with one split and with eight.
+
 Tolerances as tests/test_kernels.py: fp32 2e-5 / bf16 3e-2 relative on acc,
 m within rtol 1e-5 / atol 1e-4; the block-diffusion output within 2e-5 /
 3e-2 (rtol and atol).
@@ -18,15 +22,31 @@ from repro_torch.kernels import chunked_paged_attn as cpa
 pytestmark = pytest.mark.cuda
 
 SHAPES = [
-    # B, c, H, KVH, D, page_size, n_slots  (tests/test_kernels.py + SDAR-8B)
-    (1, 2, 2, 1, 64, 16, 4),
-    (2, 8, 4, 2, 64, 16, 8),
-    (2, 16, 8, 2, 128, 16, 4),
-    (3, 32, 6, 3, 64, 8, 16),
-    (2, 1, 4, 4, 128, 32, 2),
-    (4, 32, 32, 8, 128, 16, 32),
-    (2, 300, 32, 8, 128, 16, 8),
-    (2, 8, 8, 2, 8, 16, 4),             # sdar-8b SMOKE head_dim 8
+    # B, c, H, KVH, D, page_size, n_slots, ctx_lens (None: random, row 0
+    # empty)  (tests/test_kernels.py + SDAR-8B)
+    (1, 2, 2, 1, 64, 16, 4, None),
+    (2, 8, 4, 2, 64, 16, 8, None),
+    (2, 16, 8, 2, 128, 16, 4, None),
+    (3, 32, 6, 3, 64, 8, 16, None),
+    (2, 1, 4, 4, 128, 32, 2, None),
+    (4, 32, 32, 8, 128, 16, 32, None),
+    (2, 300, 32, 8, 128, 16, 8, None),
+    (2, 8, 8, 2, 8, 16, 4, None),             # sdar-8b SMOKE head_dim 8
+    (8, 32, 32, 8, 128, 16, 130, [0] + [2048] * 7),   # SDAR-8B decode
+    (2, 256, 32, 8, 128, 16, 48, [0, 768]),   # SDAR-8B prefill chunk
+]
+
+# The forced variants of each dtype.  float32 has only the CUDA-core body
+# (its row tilings); bf16 the picked body, the CUDA-core body, and the
+# tensor-core body with one split and with eight.
+VARIANTS = [
+    ("float32", "picked", {}),
+    ("float32", "cuda_core_rows_1", {"rows_per_warp": 1}),
+    ("float32", "cuda_core_rows_8", {"rows_per_warp": 8}),
+    ("bfloat16", "picked", {}),
+    ("bfloat16", "cuda_core", {"body": "cuda_core"}),
+    ("bfloat16", "tensor_core_s1", {"body": "tensor_core", "splits": 1}),
+    ("bfloat16", "tensor_core_s8", {"body": "tensor_core", "splits": 8}),
 ]
 
 
@@ -37,11 +57,12 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("rows_per_warp", [0, 1, 8])
+@pytest.mark.parametrize("dtype, variant, forced", VARIANTS,
+                         ids=[f"{d}-{v}" for d, v, _ in VARIANTS])
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_version(cuda, shape, dtype, rows_per_warp):
-    B, c, H, KVH, D, ps, n_slots = shape
+def test_kernel_matches_plain_version(cuda, shape, dtype, variant, forced):
+    B, c, H, KVH, D, ps, n_slots, lens = shape
+    dtype = getattr(torch, dtype)
     rng = np.random.default_rng(42)
     P = B * n_slots + 3
     mk = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
@@ -50,17 +71,23 @@ def test_kernel_matches_plain_version(cuda, shape, dtype, rows_per_warp):
     tables = torch.as_tensor(
         rng.permutation(P)[:B * n_slots].reshape(B, n_slots),
         dtype=torch.int32, device=cuda)
-    lens = rng.integers(1, ps * n_slots, B)
-    lens[0] = 0                                   # an empty row
+    if lens is None:
+        lens = rng.integers(1, ps * n_slots, B)
+        lens[0] = 0                               # an empty row
     lens = torch.as_tensor(lens, dtype=torch.int32, device=cuda)
-    before = cpa.LAUNCHES
-    if rows_per_warp:       # a forced row tiling
-        acc, m, l = cpa.paged_chunk_attention_kernel(
-            q, kp, vp, tables, lens, rows_per_warp=rows_per_warp)
+    before, merges = cpa.LAUNCHES, cpa.MERGE_LAUNCHES
+    if forced:              # a forced body, split count or row tiling
+        acc, m, l = cpa.paged_chunk_attention_kernel(q, kp, vp, tables, lens,
+                                                     **forced)
     else:                   # the wrapper the model calls
         acc, m, l = cpa.paged_chunk_attention(q, kp, vp, tables, lens)
     torch.cuda.synchronize()
     assert cpa.LAUNCHES == before + 1
+    if forced.get("splits", 0) > 1:
+        assert cpa.MERGE_LAUNCHES == merges + 1
+    if forced.get("splits") == 1 or "rows_per_warp" in forced \
+            or forced.get("body") == "cuda_core":
+        assert cpa.MERGE_LAUNCHES == merges
     acc_r, m_r, l_r = cpa.paged_chunk_ref(q, kp, vp, tables, lens)
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(m, m_r, rtol=1e-5, atol=1e-4)
@@ -69,6 +96,7 @@ def test_kernel_matches_plain_version(cuda, shape, dtype, rows_per_warp):
     assert rel < tol, rel
     torch.testing.assert_close(l, l_r, rtol=tol, atol=1e-5)
     assert torch.all(acc[0] == 0) and torch.all(m[0] == -1e30)
+    assert torch.all(l[0] == 0)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -81,6 +109,18 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     q, kp = q[..., :8].contiguous(), kp[..., :8].contiguous()
     with pytest.raises(ValueError, match="rows_per_warp"):
         cpa.paged_chunk_attention_kernel(q, kp, kp, t, ln, rows_per_warp=4)
+    with pytest.raises(ValueError, match="body"):
+        cpa.paged_chunk_attention_kernel(q, kp, kp, t, ln, body="wgmma")
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        cpa.paged_chunk_attention_kernel(q, kp, kp, t, ln,
+                                         body="tensor_core")
+    with pytest.raises(ValueError, match="splits"):
+        cpa.paged_chunk_attention_kernel(q, kp, kp, t, ln, splits=2)
+    qb, kb = q.bfloat16(), kp.bfloat16()
+    with pytest.raises(ValueError, match="rows_per_warp"):
+        cpa.paged_chunk_attention_kernel(qb, kb, kb, t, ln, rows_per_warp=8)
+    with pytest.raises(ValueError, match="splits"):
+        cpa.paged_chunk_attention_kernel(qb, kb, kb, t, ln, splits=-1)
 
 
 BD_SHAPES = {
@@ -93,17 +133,32 @@ BD_SHAPES = {
 }
 
 
+# float32 runs the CUDA-core body; bf16 both bodies.
+BD_VARIANTS = [
+    ("float32", "picked", {}),
+    ("bfloat16", "picked", {}),
+    ("bfloat16", "cuda_core", {"body": "cuda_core"}),
+]
+
+
+@pytest.mark.parametrize("dtype, variant, forced", BD_VARIANTS,
+                         ids=[f"{d}-{v}" for d, v, _ in BD_VARIANTS])
 @pytest.mark.parametrize("shape", sorted(BD_SHAPES))
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_block_diffusion_kernel_matches_plain_version(cuda, shape, dtype):
+def test_block_diffusion_kernel_matches_plain_version(cuda, shape, dtype,
+                                                      variant, forced):
     B, T, H, KVH, D, bs, lens = BD_SHAPES[shape]
+    dtype = getattr(torch, dtype)
     rng = np.random.default_rng(42)
     mk = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
                                     device=cuda).to(dtype)
     q, k, v = mk(B, T, H, D), mk(B, T, KVH, D), mk(B, T, KVH, D)
     lens = torch.as_tensor(lens, dtype=torch.int32, device=cuda)
     before = bda.LAUNCHES
-    out = bda.block_diffusion_attention(q, k, v, lens, block_size=bs)
+    if forced:
+        out = bda.block_diffusion_attention_kernel(q, k, v, lens,
+                                                   block_size=bs, **forced)
+    else:
+        out = bda.block_diffusion_attention(q, k, v, lens, block_size=bs)
     torch.cuda.synchronize()
     assert bda.LAUNCHES == before + 1
     assert out.dtype == dtype and out.shape == q.shape
@@ -134,3 +189,9 @@ def test_block_diffusion_kernel_rejects_what_it_does_not_take(cuda):
         bda.block_diffusion_attention_kernel(
             q.transpose(1, 2).contiguous().transpose(1, 2), k, k, ln,
             block_size=4)
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        bda.block_diffusion_attention_kernel(q, k, k, ln, block_size=4,
+                                             body="tensor_core")
+    with pytest.raises(ValueError, match="body"):
+        bda.block_diffusion_attention_kernel(q, k, k, ln, block_size=4,
+                                             body="wgmma")
