@@ -9,14 +9,20 @@ Phases, in order (any failed check raises and the script exits non-zero):
 2. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a (one compile per source, all at once);
 3. kernel phase: each kernel's wrapper on CUDA tensors against its plain
-   PyTorch version on the same inputs, at the serving path's shapes, under
-   each body (bf16: the tensor-core body the wrapper picks and the first,
-   CUDA-core design; the paged kernel's tensor-core body also with one
-   split),
+   PyTorch version on the same inputs, at the serving path's shapes (those
+   of SDAR-8B, and of Llama-4 Scout, Qwen2-VL-2B and Kimi K2: GQA groups 5
+   and 6, head dim 112), under each body (bf16: the tensor-core body the
+   wrapper picks and the first, CUDA-core design; the paged kernel's
+   tensor-core body also with one split),
    with times (CUDA events; the block-diffusion kernel beside
    ``scaled_dot_product_attention``), TFLOP/s and the card's least time for
    the same work; then the split merge at rows whose splits are all empty
    (ctx 0) or all but the first (ctx 5);
+3b. MoE layer phase: one Llama-4 Scout layer's experts at full width on the
+   token counts of a decode dispatch, a prefill chunk and a wave, the
+   grouped route (``torch._grouped_mm``) against the loop route, timed
+   beside the grouped products' bound, and run once under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
 4. model phase: one ``decode_step_paged`` dispatch of SDAR-8B at full width
    and depth in bf16, through the kernel and through the plain version, on
    the same weights and pool, held at limits that a control run (the
@@ -39,7 +45,18 @@ Phases, in order (any failed check raises and the script exits non-zero):
    requests with chunked prefill, a shorter AR run, and the elastic run's
    requests again with wave prefill — with the kernels' launch counts (and
    the paged kernel's merge launches) set to 0 before each run and read
-   after it.
+   after it;
+8. the moe family: Llama-4 Scout at full width, 8 of its 48 layers (the
+   card's 80 GB), random weights drawn on the card: one decode dispatch
+   kernel path vs plain path as in phase 4, with the kernel path's routing
+   pinned to the plain path's experts (with its own routing, the (token,
+   layer) pairs whose top-1 expert flips are readings, beside the same
+   readings of the plain split version as the noise floor), profiled as in
+   phase 5 (the grouped products' device time too), then the elastic
+   serving run of phase 7;
+9. the vlm family: Qwen2-VL-2B at full width and depth (text only) served
+   elastic with chunked prefill and with wave prefill, as in phase 7.
+   Each model is freed before the next is drawn.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repository
@@ -49,6 +66,7 @@ beside this file, it prints no result and exits non-zero.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -128,16 +146,20 @@ def time_ms(fn, iters: int = 25, warmup: int = 3) -> float:
 # kernel phase
 # ---------------------------------------------------------------------------
 
+RAGGED_CTX = [0, 1, 15, 16, 17, 2048, 700, 1333]
 KERNEL_SHAPES = [
     # name, B, c, H, KVH, D, ps, dtype, ctx_lens
-    ("a_decode_sdar8b", 8, 32, 32, 8, 128, 16, "bfloat16",
-     [0, 1, 15, 16, 17, 2048, 700, 1333]),
+    ("a_decode_sdar8b", 8, 32, 32, 8, 128, 16, "bfloat16", RAGGED_CTX),
     ("a_decode_sdar8b_ctx2048", 8, 32, 32, 8, 128, 16, "bfloat16",
      [2048] * 8),
-    ("b_ar_sdar8b", 8, 1, 32, 8, 128, 16, "bfloat16",
-     [0, 1, 15, 16, 17, 2048, 700, 1333]),
+    ("b_ar_sdar8b", 8, 1, 32, 8, 128, 16, "bfloat16", RAGGED_CTX),
     ("c_prefill_chunk", 2, 256, 32, 8, 128, 16, "bfloat16", [0, 768]),
     ("d_fp32_d64", 4, 8, 8, 2, 64, 16, "float32", [0, 33, 100, 300]),
+    # the moe and vlm families' decode: GQA groups 5 and 6 (G·c 160 and
+    # 192 rows tile over the grid's x axis), head dim 112
+    ("i_decode_scout", 8, 32, 40, 8, 128, 16, "bfloat16", RAGGED_CTX),
+    ("j_decode_qwen2vl", 8, 32, 12, 2, 128, 16, "bfloat16", RAGGED_CTX),
+    ("k_decode_kimi_k2", 8, 32, 64, 8, 112, 16, "bfloat16", RAGGED_CTX),
 ]
 
 
@@ -160,13 +182,17 @@ def bound(B, c, H, KVH, D, ps, dtype, ctx):
 # wave of 8 prompts padded to T 512 (one batch-padding row, lengths 0);
 # (h) is the SMOKE config the CLI serves (head_dim 8, fp32, block 8) at
 # T 48, which is not a power of two.
+# (l)-(n) are the wave of (e) at the moe and vlm families' heads.
+WAVE_LENGTHS = [512, 0, 130, 257, 384, 449, 200, 511]
 BD_SHAPES = [
     # name, B, T, H, KVH, D, block_size, dtype, lengths
-    ("e_wave_sdar8b", 8, 512, 32, 8, 128, 32, "bfloat16",
-     [512, 0, 130, 257, 384, 449, 200, 511]),
+    ("e_wave_sdar8b", 8, 512, 32, 8, 128, 32, "bfloat16", WAVE_LENGTHS),
     ("f_long_sdar8b", 2, 2048, 32, 8, 128, 32, "bfloat16", [2048, 1500]),
     ("g_causal_bs1", 4, 256, 32, 8, 128, 1, "bfloat16", [256, 0, 100, 17]),
     ("h_smoke_fp32_d8", 3, 48, 8, 2, 8, 8, "float32", [48, 0, 5]),
+    ("l_wave_scout", 8, 512, 40, 8, 128, 32, "bfloat16", WAVE_LENGTHS),
+    ("m_wave_qwen2vl", 8, 512, 12, 2, 128, 32, "bfloat16", WAVE_LENGTHS),
+    ("n_wave_kimi_k2", 8, 512, 64, 8, 112, 32, "bfloat16", WAVE_LENGTHS),
 ]
 
 
@@ -416,6 +442,116 @@ def merge_phase(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# MoE layer phase
+# ---------------------------------------------------------------------------
+
+# One Llama-4 Scout layer's experts at full width (16 experts of d 5120 and
+# f 8192, top-1, bf16) on T tokens: a decode dispatch (B 8 x c 32), a
+# chunked-prefill tick (32 prompt tokens) and the wave of shape (e).
+MOE_ARCH = "llama4-scout-17b-a16e"
+MOE_TOKENS = (("decode", 256), ("prefill_chunk", 32), ("wave", 4096))
+
+
+def moe_bound(cfg, T: int, n_touched: int):
+    """The card's least time for the three grouped products of one MoE
+    layer: the larger of the bytes they must move (the touched experts'
+    three weights, the routed rows in and each product's output out, each
+    once) over HBM bandwidth and their 6·C·d·f operations over the bf16
+    peak, C the routed (token, expert) pairs."""
+    d, f = cfg.d_model, cfg.moe_ff
+    C = T * cfg.top_k
+    nbytes = 2 * (3 * n_touched * d * f + C * d + 2 * C * f + C * f
+                  + C * d)
+    ops = 6.0 * C * d * f
+    t_b, t_o = nbytes / H100_HBM_BPS, ops / PEAK_FLOPS["bfloat16"]
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def moe_layer_phase(seed: int) -> list[dict]:
+    """The sorted MoE path (``_moe_local``) of one Scout layer: the CUDA
+    grouped route (``torch._grouped_mm``, group sizes on the device) against
+    the loop route (``grouped_matmul_loop``, sizes read on the host) on the
+    same inputs, each timed, the grouped products alone timed beside their
+    bound, and one grouped-route call under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any host
+    sync."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config(MOE_ARCH)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    p = {k: v[0] for k, v in moe.init_moe(g, cfg, DEVICE, 1).items()}
+    w = (p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    log(f"moe: torch {torch.__version__}, torch._grouped_mm on bf16 "
+        f"weights [E, d, f] {tuple(p['w_gate'].shape)} strides "
+        f"{p['w_gate'].stride()} and [E, f, d] strides "
+        f"{p['w_down'].stride()}")
+    rows_out = []
+    for name, T in MOE_TOKENS:
+        x = torch.randn((T, cfg.d_model), generator=g, device=DEVICE).to(
+            torch.bfloat16)
+        calls = moe.GROUPED_CALLS
+        got = moe._moe_local(x, *w, cfg=cfg)
+        torch.cuda.synchronize()
+        if moe.GROUPED_CALLS != calls + 3:
+            raise AssertionError(f"moe {name}: the grouped route made "
+                                 f"{moe.GROUPED_CALLS - calls} calls, not 3")
+        exact = moe.grouped_matmul
+        moe.grouped_matmul = moe.grouped_matmul_loop
+        try:
+            want = moe._moe_local(x, *w, cfg=cfg)
+            plain_ms = time_ms(lambda: moe._moe_local(x, *w, cfg=cfg),
+                               iters=10)
+        finally:
+            moe.grouped_matmul = exact
+        err = float((got.float() - want.float()).abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL,
+                                   atol=BF16_TOL)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"moe {name}: non-finite output")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            moe._moe_local(x, *w, cfg=cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        # the grouped products alone, on this call's routing
+        gates, ids = moe._route(x, w[0], cfg.top_k)
+        order = torch.argsort(ids.reshape(-1), stable=True)
+        rows = x[torch.div(order, cfg.top_k, rounding_mode="floor")]
+        gsz = torch.bincount(ids.reshape(-1), minlength=cfg.n_experts).to(
+            torch.int32)
+        n_touched = int((gsz > 0).sum())
+
+        def products():
+            a = moe.grouped_matmul(rows, w[1], gsz)
+            b = moe.grouped_matmul(rows, w[2], gsz)
+            return moe.grouped_matmul(a * b, w[3], gsz)
+
+        grouped_ms = time_ms(products, iters=10)
+        layer_ms = time_ms(lambda: moe._moe_local(x, *w, cfg=cfg), iters=10)
+        b_ms, b_by = moe_bound(cfg, T, n_touched)
+        row = {"tokens": name, "T": T, "experts_touched": n_touched,
+               "max_abs_err": err, "layer_ms": layer_ms,
+               "grouped_ms": grouped_ms, "plain_layer_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "grouped_over_bound": grouped_ms / b_ms,
+               "sync_free": True}
+        rows_out.append(row)
+        log(f"moe {name} (T {T}, {n_touched} experts touched): grouped vs "
+            f"loop route max abs err {err:.3e}; no host sync under "
+            f"set_sync_debug_mode('error'); layer {layer_ms:.4f} ms, three "
+            f"grouped products {grouped_ms:.4f} ms ({grouped_ms / b_ms:.2f}x"
+            f" bound {b_ms:.4f} ms, {b_by}), loop route layer "
+            f"{plain_ms:.4f} ms")
+        del x, got, want, rows
+    del p, w
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+# ---------------------------------------------------------------------------
 # model phase
 # ---------------------------------------------------------------------------
 
@@ -540,28 +676,9 @@ def model_phase(model, params, pool, seed: int) -> dict:
         tfm.paged_chunk_ref = plain
     torch.cuda.synchronize()
 
-    lr_std = float(lr.std())
-
-    def readings(conf, tok, logits):
-        return {"logits_rel": float((logits - lr).abs().max()) / lr_std,
-                "tokens_differ_share": float((tok != tr).float().mean()),
-                "conf_rel": float(((conf - cr).abs() / cr).max())}
-
+    readings, margin_of, gap, lr_std = decode_readings(cr, tr, lr)
     sound, ctl = readings(*kernel), readings(*control)
     ck, tk, lk = kernel
-    top2 = lr.topk(2, dim=-1).values
-    gap = top2[..., 0] - top2[..., 1]
-    tol = BF16_TOL * top2[..., 0].abs().clamp(min=1.0)
-
-    def margin_of(tok):
-        # tokens may differ only where the plain path's top-1/top-2 gap is
-        # under the bf16 tolerance; the margin is the least (tolerance -
-        # gap) over the tokens that differ
-        diff = tok != tr
-        n = int(diff.sum())
-        return (n, float(gap[diff].max()) if n else 0.0,
-                float((tol - gap)[diff].min()) if n else None)
-
     n_diff, max_gap, margin = margin_of(tk)
     floor = {**readings(*reorder), "splits": splits}
     floor["tokens_differ"], floor["max_gap_where_differ"], \
@@ -600,16 +717,50 @@ def model_phase(model, params, pool, seed: int) -> dict:
     if n_diff and not margin > 0:
         raise AssertionError("model: a token differs where its top-1/top-2 "
                              "logit gap exceeds the bf16 tolerance")
-    for key, lim in MODEL_LIMITS.items():
+    check_limits("model", sound, ctl, MODEL_LIMITS, CONTROL_BREAKS)
+    return res
+
+
+def decode_readings(cr, tr, lr):
+    """From the plain path's conf, tok and logits of one decode dispatch:
+    ``readings(conf, tok, logits)`` of another path against it (the
+    MODEL_LIMITS keys), ``margin_of(tok)`` (tokens that differ, the largest
+    plain top-1/top-2 gap among them, and the least (tolerance - gap) over
+    them: tokens may differ only where the plain gap is under the bf16
+    tolerance of the top-1 logit), the plain gaps and the logits' std."""
+    lr_std = float(lr.std())
+
+    def readings(conf, tok, logits, *_):
+        return {"logits_rel": float((logits - lr).abs().max()) / lr_std,
+                "tokens_differ_share": float((tok != tr).float().mean()),
+                "conf_rel": float(((conf - cr).abs() / cr).max())}
+
+    top2 = lr.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    tol = BF16_TOL * top2[..., 0].abs().clamp(min=1.0)
+
+    def margin_of(tok):
+        diff = tok != tr
+        n = int(diff.sum())
+        return (n, float(gap[diff].max()) if n else 0.0,
+                float((tol - gap)[diff].min()) if n else None)
+
+    return readings, margin_of, gap, lr_std
+
+
+def check_limits(what, sound, ctl, limits, breaks):
+    """The kernel path's readings under their limits, and the control run's
+    over each limit in ``breaks`` (else the limit could not see the
+    control's error)."""
+    for key, lim in limits.items():
         if not sound[key] < lim:
-            raise AssertionError(f"model: kernel path {key} {sound[key]} >= "
+            raise AssertionError(f"{what}: kernel path {key} {sound[key]} >= "
                                  f"{lim}")
-        if key in CONTROL_BREAKS and not ctl[key] >= lim:
-            raise AssertionError(f"model: the control run's {key} "
+        if key in breaks and not ctl[key] >= lim:
+            raise AssertionError(f"{what}: the control run's {key} "
                                  f"{ctl[key]} stays under {lim}, so this "
                                  f"limit cannot see a {CONTROL_SKEW:.0%} "
                                  f"error")
-    return res
 
 
 def model_paths(cpa):
@@ -659,12 +810,14 @@ def sweep_margins(paths, dispatch, tfm, margin_of) -> list[dict]:
 # profile phase
 # ---------------------------------------------------------------------------
 
-def profile_dispatch(dispatch, kernel: str, iters: int, n: int) -> dict:
+def profile_dispatch(dispatch, kernel: str, iters: int, n: int,
+                     ops: tuple = ()) -> dict:
     """Where one dispatch's time goes: wall per dispatch (host clock around
     ``torch.cuda.synchronize``, median of ``iters``) through the kernel,
     the plain version and the kernel again, then ``torch.profiler`` over
-    ``n`` kernel-path dispatches: device time, busy share of the wall, and
-    the share of the device kernel whose name holds ``kernel``."""
+    ``n`` kernel-path dispatches: device time, busy share of the wall, the
+    share of the device kernel whose name holds ``kernel``, and the device
+    time of each PyTorch op in ``ops`` (the kernels it launched)."""
     import torch
 
     def wall_ms(impl):
@@ -695,6 +848,11 @@ def profile_dispatch(dispatch, kernel: str, iters: int, n: int) -> dict:
     mine = sum(t for k, t, _ in kern if kernel in k)
     if not mine > 0:
         raise AssertionError(f"profile: {kernel} shows no device time")
+    op_us = {op: sum(e.device_time_total for e in prof.key_averages()
+                     if e.key == op) for op in ops}
+    for op, t in op_us.items():
+        if not t > 0:
+            raise AssertionError(f"profile: {op} shows no device time")
     return {"wall_ms_kernel": walls["kernel"], "wall_ms_plain": walls["ref"],
             "profiled_dispatches": n,
             "wall_ms_profiled": wall_us / n / 1e3,
@@ -703,6 +861,9 @@ def profile_dispatch(dispatch, kernel: str, iters: int, n: int) -> dict:
             "kernel_ms_per_dispatch": mine / n / 1e3,
             "kernel_share_of_device": mine / max(busy, 1e-9),
             "device_kernels_per_dispatch": sum(c for *_, c in kern) / n,
+            "ops": {op: {"ms_per_dispatch": t / n / 1e3,
+                         "share_of_device": t / max(busy, 1e-9)}
+                    for op, t in op_us.items()},
             "top": [{"name": k[:90], "ms_per_dispatch": t / n / 1e3,
                      "calls_per_dispatch": c / n} for k, t, c in kern[:8]]}
 
@@ -715,7 +876,9 @@ def log_profile(what: str, row: dict, kernel: str):
         f"{row['device_busy_share']:.3f}) in "
         f"{row['device_kernels_per_dispatch']:.0f} kernels; {kernel} kernel "
         f"{row['kernel_ms_per_dispatch']:.3f} ms (share of device "
-        f"{row['kernel_share_of_device']:.3f})")
+        f"{row['kernel_share_of_device']:.3f})" + "".join(
+            f"; {op} {r['ms_per_dispatch']:.3f} ms (share of device "
+            f"{r['share_of_device']:.3f})" for op, r in row["ops"].items()))
     for r in row["top"]:
         log(f"  {r['ms_per_dispatch']:8.3f} ms {r['calls_per_dispatch']:6.1f}x"
             f"  {r['name']}")
@@ -740,6 +903,207 @@ def profile_phase(model, params, pool, seed: int) -> list[dict]:
         out.append(row)
         log_profile(f"ctx {ctx} (B {MODEL_B}, c {MODEL_C})", row, "paged")
     return out
+
+
+# ---------------------------------------------------------------------------
+# MoE model phase
+# ---------------------------------------------------------------------------
+
+# One decode_step_paged of Llama-4 Scout at full width and MOE_LAYERS deep
+# (bf16, random weights drawn on the card), every context at MOE_CTX, kernel
+# path vs plain path.  Top-1 routing is discontinuous: where attention's
+# rounding moves a token across its router's top-1/top-2 boundary, its
+# hidden state jumps to another expert's output, and the jump spreads to
+# the row's later tokens and layers.  So the kernel path is held at
+# MOE_LIMITS (the MODEL_LIMITS readings) with its routing pinned to the
+# plain path's experts (each layer's gates from its own router
+# probabilities), as the CPU tests teacher-force window tokens, and to the
+# decode gap check of phase 4; the control run (the kernel's acc x (1 +
+# CONTROL_SKEW), pinned the same way) must break every limit.  The limits
+# sit between the two readings of the first H100 run (kernel 0.0986 /
+# 0.0646 / 0.0391, control 0.3204 / 0.1689 / 0.1445).  Readings only, from
+# the kernel path with its own routing: the tokens that differ and the gap
+# check's margin, the (token, layer) pairs whose top-1 expert differs from
+# the plain path's, the largest plain router-probability margin among them,
+# and the same for the primary flips (those in a row with no flip in an
+# earlier layer, so moved by attention's rounding alone); the same readings
+# of the plain split version with its own routing, as the noise floor of two
+# plain paths that sum in another order; and, pinned, the largest
+# router-probability difference.
+MOE_LAYERS, MOE_CTX = 8, 512
+MOE_LIMITS = {"logits_rel": 0.2, "conf_rel": 0.12,
+              "tokens_differ_share": 0.09}
+MOE_CONTROL_BREAKS = tuple(MOE_LIMITS)
+
+
+def moe_model_phase(model, params, pool, seed: int) -> dict:
+    import torch
+
+    import repro_torch.models.moe as moe
+    import repro_torch.models.transformer as tfm
+    from repro_torch.kernels import chunked_paged_attn as cpa
+
+    cfg = model.cfg
+    L = cfg.n_layers
+    cache, tables = pool
+    win, start, valid, n_adv = decode_inputs(model, [MOE_CTX] * MODEL_B,
+                                             seed)
+    route = moe._route
+
+    def dispatch(impl, pin=None):
+        """decode_step_paged, then chunk_forward_paged for the logits; each
+        layer's router probabilities and own choice of experts are kept,
+        and with ``pin`` ([L, T, k]) the experts used are pin's."""
+        probs, ids_own = [], []
+
+        def rec(x, router_w, top_k):
+            p = torch.softmax((x @ router_w.to(x.dtype)).float(), dim=-1)
+            gates, ids = route(x, router_w, top_k)
+            layer = len(probs) % L
+            probs.append(p)
+            ids_own.append(ids)
+            if pin is not None:
+                ids = pin[layer]
+                gates = p.gather(-1, ids.long())
+                gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                            min=1e-9)
+            return gates, ids
+
+        moe._route = rec
+        try:
+            conf, tok, _ = model.decode_step_paged(
+                params, cache, win, start, valid, tables, start, n_adv,
+                impl=impl)
+            logits, _ = model.chunk_forward_paged(
+                params, cache, win, start, valid, tables, start, impl=impl)
+        finally:
+            moe._route = route
+        if len(probs) != 2 * L:
+            raise AssertionError(f"moe model: {len(probs)} routings, not "
+                                 f"2 x {L}")
+        if not torch.equal(tfm.softmax_confidence_device(logits)[1], tok):
+            raise AssertionError("moe model: decode_step_paged disagrees "
+                                 "with chunk_forward_paged + sampling")
+        for t in (conf, logits):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"moe model: non-finite output "
+                                     f"({impl})")
+        return (conf, tok, logits, torch.stack(probs[L:]),
+                torch.stack(ids_own[L:]))
+
+    plain = dispatch("ref")
+    free = dispatch("kernel")
+    kernel = dispatch("kernel", pin=plain[4])
+    # the free-running noise floor: the plain split version (the plain
+    # math, the kernel's split of the keys, another order of the sums) on
+    # the plain path, routing free — a reading only
+    plain_attn = tfm.paged_chunk_ref
+    splits = cpa.pick_splits(MODEL_B, MODEL_C, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.kv_page_size, tables.shape[1])
+    tfm.paged_chunk_ref = lambda *a, **k: cpa.paged_chunk_split_ref(
+        *a, splits=splits, **k)
+    try:
+        reorder = dispatch("ref")
+    finally:
+        tfm.paged_chunk_ref = plain_attn
+    exact = tfm.paged_chunk_attention
+
+    def skewed(*a, **k):
+        acc, m, l = exact(*a, **k)
+        return acc * (1 + CONTROL_SKEW), m, l
+
+    tfm.paged_chunk_attention = skewed
+    try:
+        control = dispatch("kernel", pin=plain[4])
+    finally:
+        tfm.paged_chunk_attention = exact
+    torch.cuda.synchronize()
+    readings, margin_of, gap, lr_std = decode_readings(*plain[:3])
+    sound, ctl = readings(*kernel), readings(*control)
+    pinned_margin = margin_of(kernel[1])
+    p_plain, top_plain = plain[3], plain[4][..., 0]
+
+    def own_routing(run):
+        """A run with its own routing against the plain path: the
+        readings, the gap check, and the (token, layer) pairs whose top-1
+        expert differs — primary where no earlier layer of that row
+        flipped — with the plain router-probability margins among them."""
+        n_diff, max_gap, margin = margin_of(run[1])
+        top = run[4][..., 0]
+        flips = top_plain != top                              # [L, B·c]
+        fmargin = (p_plain.gather(-1, top_plain[..., None].long())
+                   - p_plain.gather(-1, top[..., None].long()))[..., 0]
+        by_row = flips.reshape(L, MODEL_B, MODEL_C).any(-1)   # [L, B]
+        earlier = torch.cumsum(by_row.int(), 0) - by_row.int() > 0
+        primary = flips & ~earlier.repeat_interleave(MODEL_C, dim=1)
+        n_flips, n_primary = int(flips.sum()), int(primary.sum())
+        return {"vs_plain": readings(*run), "tokens_differ": n_diff,
+                "max_gap_where_differ": max_gap, "gap_margin": margin,
+                "expert_flips": n_flips, "routed_pairs": flips.numel(),
+                "flips_by_layer": flips.sum(-1).tolist(),
+                "largest_router_margin_where_flipped":
+                    float(fmargin[flips].max()) if n_flips else None,
+                "primary_flips": n_primary,
+                "largest_router_margin_primary":
+                    float(fmargin[primary].max()) if n_primary else None}
+
+    def log_own(what, o):
+        log(f"  {what}: tokens differ {o['tokens_differ']}/{res['tokens']} "
+            f"(largest top-1/top-2 gap where they differ "
+            f"{o['max_gap_where_differ']:.4f}, gap check margin "
+            f"{o['gap_margin']}); top-1 expert differs in "
+            f"{o['expert_flips']} of {o['routed_pairs']} (token, layer) "
+            f"pairs, by layer {o['flips_by_layer']}, largest plain "
+            f"router-probability margin among them "
+            f"{o['largest_router_margin_where_flipped']}; "
+            f"{o['primary_flips']} primary flips, largest margin among them "
+            f"{o['largest_router_margin_primary']}; logits_rel "
+            f"{o['vs_plain']['logits_rel']:.4f}, conf_rel "
+            f"{o['vs_plain']['conf_rel']:.4f}")
+
+    res = {"arch": cfg.name, "layers": L, "B": MODEL_B, "c": MODEL_C,
+           "ctx": MOE_CTX, "tokens": free[1].numel(),
+           "logits_std_plain": lr_std, "kernel_vs_plain": sound,
+           "control_skew": CONTROL_SKEW, "control_vs_plain": ctl,
+           "limits": MOE_LIMITS, "control_breaks": MOE_CONTROL_BREAKS,
+           "routing": "pinned to the plain path's experts",
+           "pinned_tokens_differ": pinned_margin[0],
+           "pinned_gap_margin": pinned_margin[2],
+           "pinned_router_prob_max_diff":
+               float((kernel[3] - p_plain).abs().max())}
+    res["own_routing"] = own_routing(free)
+    res["plain_split_own_routing"] = {**own_routing(reorder),
+                                      "splits": splits}
+    log(f"moe model decode_step_paged ({cfg.name}, {L} layers at full "
+        f"width, B {MODEL_B}, c {MODEL_C}, ctx {MOE_CTX}, "
+        f"{cfg.compute_dtype}); own routing, readings:")
+    log_own("kernel path", res["own_routing"])
+    log_own(f"noise floor, the plain split version ({splits} splits)",
+            res["plain_split_own_routing"])
+    log(f"  routing pinned to the plain path's: tokens differ "
+        f"{pinned_margin[0]} (gap check margin {pinned_margin[2]}), router "
+        f"probabilities differ by at most "
+        f"{res['pinned_router_prob_max_diff']:.3e}")
+    for key, lim in MOE_LIMITS.items():
+        log(f"  {key} (pinned): kernel {sound[key]:.4f}  control (acc x "
+            f"{1 + CONTROL_SKEW}) {ctl[key]:.4f}  limit {lim}")
+    if pinned_margin[0] and not pinned_margin[2] > 0:
+        raise AssertionError("moe model: with pinned routing a token "
+                             "differs where its top-1/top-2 logit gap "
+                             "exceeds the bf16 tolerance")
+    check_limits("moe model", sound, ctl, MOE_LIMITS, MOE_CONTROL_BREAKS)
+
+    def head_only(impl):
+        conf, tok, _ = model.decode_step_paged(params, cache, win, start,
+                                               valid, tables, start, n_adv,
+                                               impl=impl)
+        return conf.cpu(), tok.cpu()
+
+    res["profile"] = profile_dispatch(head_only, "paged_chunk_attn", 5, 3,
+                                      ops=("aten::_grouped_mm",))
+    log_profile(f"moe decode ({cfg.name}, ctx {MOE_CTX})", res["profile"],
+                "paged")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -848,15 +1212,8 @@ def prefill_model_phase(model, params, pool, seed: int) -> dict:
         log(f"  {key}: kernel {sound[key]}  control (out x "
             f"{1 + CONTROL_SKEW}) {ctl[key]}  limit "
             f"{PREFILL_LIMITS.get(key, 'none (a reading)')}")
-    for key, lim in PREFILL_LIMITS.items():
-        if not sound[key] < lim:
-            raise AssertionError(f"prefill: kernel path {key} {sound[key]} "
-                                 f">= {lim}")
-        if key in PREFILL_CONTROL_BREAKS and not ctl[key] >= lim:
-            raise AssertionError(f"prefill: the control run's {key} "
-                                 f"{ctl[key]} stays under {lim}, so this "
-                                 f"limit cannot see a {CONTROL_SKEW:.0%} "
-                                 f"error")
+    check_limits("prefill", sound, ctl, PREFILL_LIMITS,
+                 PREFILL_CONTROL_BREAKS)
     return res
 
 
@@ -911,10 +1268,12 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
     from repro_torch.core.scheduler import ElasticScheduler, FixedScheduler
     from repro_torch.kernels import block_diffusion_attn as bda
     from repro_torch.kernels import chunked_paged_attn as cpa
+    from repro_torch.models import moe
     from repro_torch.serving import DATASETS, ModelBackend, ServingEngine
 
     cfg = model.cfg
     wave = mode == "wave"
+    sorted_moe = moe.takes_sorted_path(cfg)   # grouped products, every layer
     be = ModelBackend(model, params, n_slots=8, max_len=max_len,
                       decode_mode="ar" if mode == "ar" else "elastic",
                       cache_dtype=torch.bfloat16, device=DEVICE,
@@ -956,6 +1315,7 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cpa.LAUNCHES = cpa.MERGE_LAUNCHES = bda.LAUNCHES = 0
+    moe.GROUPED_CALLS = 0
     t0 = time.perf_counter()
     try:
         rep = eng.run(list(reqs))
@@ -964,7 +1324,7 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
         undo()
     wall = time.perf_counter() - t0
     launches, bd_launches = cpa.LAUNCHES, bda.LAUNCHES
-    merges = cpa.MERGE_LAUNCHES
+    merges, grouped = cpa.MERGE_LAUNCHES, moe.GROUPED_CALLS
     delattr(model, prefill_fn)
     del model.decode_step_paged
 
@@ -972,20 +1332,23 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
     tokens = sum(len(v) for v in outs.values())
     dec_bytes = sum(8 * b * c for b, c in shapes["decode"])
     pre_bytes = sum(8 * b for b, _ in shapes["prefill"])
-    res = {"mode": mode, "requests": len(rep.metrics),
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "mode": mode,
+           "requests": len(rep.metrics),
            "tokens_committed": tokens, "decode_dispatches": n_dec,
            "prefill_dispatches": n_pre, "kernel_launches": launches,
            "merge_launches": merges, "bd_kernel_launches": bd_launches,
+           "grouped_mm_calls": grouped,
            "prefill_shapes": shapes["prefill"],
            "host_bytes_per_decode_dispatch": dec_bytes / max(n_dec, 1),
            "wall_s": wall, "tok_per_s": tokens / wall,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "chunks": sorted({c for _, c in shapes["decode"]}),
            "batches": sorted({b for b, _ in shapes["decode"]})}
-    log(f"serve {mode}: {res['requests']} requests finished, {tokens} "
+    log(f"serve {cfg.name} ({cfg.n_layers} layers) {mode}: "
+        f"{res['requests']} requests finished, {tokens} "
         f"tokens committed, {n_dec} decode + {n_pre} prefill dispatches, "
         f"{launches} paged ({merges} with a split merge) + {bd_launches} "
-        f"block-diffusion kernel launches, "
+        f"block-diffusion kernel launches, {grouped} grouped products, "
         f"prefill shapes {sorted(set(shapes['prefill']))}, "
         f"{res['host_bytes_per_decode_dispatch']:.1f}"
         f" host bytes per decode dispatch, {wall:.3f} s wall, "
@@ -1014,6 +1377,10 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
         (not wave or bd_launches == cfg.n_layers * n_pre > 0,
          f"{bd_launches} block-diffusion launches != {cfg.n_layers} x "
          f"{n_pre} prefill dispatches"),
+        (grouped == (3 * cfg.n_layers * (n_dec + n_pre) if sorted_moe
+                     else 0),
+         f"{grouped} grouped products != 3 x {cfg.n_layers} MoE layers x "
+         f"{n_dec + n_pre} dispatches"),
         (be.host_transfer_bytes == dec_bytes + pre_bytes,
          "host bytes != 8·Bp·c per decode + 8·Bp per prefill dispatch"),
         ((be.kv.k_pages.data_ptr(), be.kv.v_pages.data_ptr()) == ptrs,
@@ -1022,7 +1389,7 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
     ]
     for ok, msg in checks:
         if not ok:
-            raise AssertionError(f"serve {mode}: {msg}")
+            raise AssertionError(f"serve {cfg.name} {mode}: {msg}")
     res["outputs"] = {r.rid: outs[r.rid] for r in reqs}
     res["gaps"] = gap_of
     return res
@@ -1053,7 +1420,8 @@ def compare_runs(wave: dict, chunked: dict) -> dict:
            "gap_at_first_divergence": {
                rid: wave["gaps"].get(rid, {}).get(i)
                for rid, i in first.items()}}
-    log(f"wave vs chunked elastic: {diff}/{total} committed tokens differ "
+    log(f"wave vs chunked elastic ({wave['arch']}): {diff}/{total} "
+        f"committed tokens differ "
         f"(share {out['tokens_differ_share']:.4f}), "
         f"{out['requests_identical']} of {len(chunked['outputs'])} requests "
         f"identical; first divergence by request {first}; least top-1/top-2 "
@@ -1123,16 +1491,36 @@ def main() -> int:
     merge_res = merge_phase(args.seed)
     bd_rows = bd_kernel_phase(args.seed)
     torch.cuda.empty_cache()
+    moe_rows = moe_layer_phase(args.seed)
+
+    def draw(cfg):
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init_params(
+            torch.Generator(device=DEVICE).manual_seed(args.seed),
+            device=DEVICE)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in params.values())
+        log(f"{cfg.name} ({cfg.n_layers} layers) params: {n_params} "
+            f"({cfg.param_dtype}) drawn on the card in "
+            f"{time.perf_counter() - t0:.2f} s")
+        return model, params
+
+    def free(what):
+        # a backend's hooks form reference cycles: collect them, so the
+        # model's weights are gone before the next model is drawn
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{what} freed: {torch.cuda.memory_allocated()} B still "
+            f"allocated")
+
+    # the elastic request shape of every model, made anew for each run (the
+    # engine stamps requests)
+    elastic_reqs = lambda cfg: make_requests(  # noqa: E731
+        cfg, args.seed, 8, (128, 512), (64, 128))
 
     cfg = get_config("sdar-8b")
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init_params(
-        torch.Generator(device=DEVICE).manual_seed(args.seed), device=DEVICE)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in params.values())
-    log(f"sdar-8b params: {n_params} ({cfg.param_dtype}) drawn on the card "
-        f"in {time.perf_counter() - t0:.2f} s")
+    model, params = draw(cfg)
     pool = make_pool(model, args.seed)
     model_res = model_phase(model, params, pool, args.seed)
     profile_res = profile_phase(model, params, pool, args.seed)
@@ -1140,19 +1528,42 @@ def main() -> int:
     del pool
     torch.cuda.empty_cache()
 
-    runs = [serve_run(model, params, "elastic",
-                      make_requests(cfg, args.seed, 8, (128, 512), (64, 128)),
+    runs = [serve_run(model, params, "elastic", elastic_reqs(cfg),
                       max_len=1024)]
     torch.cuda.empty_cache()
     runs.append(serve_run(model, params, "ar",
                           make_requests(cfg, args.seed + 1, 4, (128, 256),
                                         (16, 32)), max_len=512))
     torch.cuda.empty_cache()
-    # the elastic run's requests, made anew (the engine stamps requests)
-    runs.append(serve_run(model, params, "wave",
-                          make_requests(cfg, args.seed, 8, (128, 512),
-                                        (64, 128)), max_len=1024))
-    wave_vs_chunked = compare_runs(runs[2], runs[0])
+    runs.append(serve_run(model, params, "wave", elastic_reqs(cfg),
+                          max_len=1024))
+    wave_vs_chunked = {"sdar-8b": compare_runs(runs[2], runs[0])}
+    del model, params
+    free("sdar-8b")
+
+    # Llama-4 Scout at full width, MOE_LAYERS deep (the card's 80 GB)
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS)
+    model, params = draw(cfg)
+    pool = make_pool(model, args.seed)
+    moe_model_res = moe_model_phase(model, params, pool, args.seed)
+    del pool
+    torch.cuda.empty_cache()
+    runs.append(serve_run(model, params, "elastic", elastic_reqs(cfg),
+                          max_len=1024))
+    del model, params
+    free(cfg.name)
+
+    # Qwen2-VL-2B at full width and depth, text only
+    cfg = get_config("qwen2-vl-2b")
+    model, params = draw(cfg)
+    runs.append(serve_run(model, params, "elastic", elastic_reqs(cfg),
+                          max_len=1024))
+    torch.cuda.empty_cache()
+    runs.append(serve_run(model, params, "wave", elastic_reqs(cfg),
+                          max_len=1024))
+    wave_vs_chunked[cfg.name] = compare_runs(runs[-1], runs[-2])
+    del model, params
+    free(cfg.name)
     for r in runs:
         del r["outputs"], r["gaps"]
 
@@ -1190,10 +1601,10 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "build_s": build_s, "ptxas": ptxas,
-             "kernels": kernels,
+             "kernels": kernels, "moe_layer": moe_rows,
              "model": model_res, "profile": profile_res,
-             "prefill_model": prefill_res, "serve": runs,
-             "wave_vs_chunked": wave_vs_chunked}, indent=1))
+             "prefill_model": prefill_res, "moe_model": moe_model_res,
+             "serve": runs, "wave_vs_chunked": wave_vs_chunked}, indent=1))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

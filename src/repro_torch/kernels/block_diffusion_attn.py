@@ -37,7 +37,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import block_diffusion_ref
 
 LAUNCHES = 0
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 112, 128)
 BODIES = ("auto", "tensor_core", "cuda_core")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROWS = 64            # rows (positions × grouped heads) per thread block

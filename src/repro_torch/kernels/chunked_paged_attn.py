@@ -44,7 +44,7 @@ from repro_torch.kernels.ref import (KEYS_PER_TILE, paged_chunk_ref,
 
 LAUNCHES = 0
 MERGE_LAUNCHES = 0
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 112, 128)
 BODIES = ("auto", "tensor_core", "cuda_core")
 ROWS_PER_WARP = (0, 1, 8)   # cuda_core: 0 is one row a warp when G·c <= 8
 SMS = 132                   # streaming multiprocessors of an H100 SXM

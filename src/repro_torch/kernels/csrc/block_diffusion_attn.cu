@@ -456,6 +456,7 @@ cudaError_t launch_dim(int D, int body, const void* q,
   REPRO_HEAD_DIM(16)
   REPRO_HEAD_DIM(32)
   REPRO_HEAD_DIM(64)
+  REPRO_HEAD_DIM(112)
   REPRO_HEAD_DIM(128)
 #undef REPRO_HEAD_DIM
   return cudaErrorInvalidValue;
@@ -463,9 +464,9 @@ cudaError_t launch_dim(int D, int body, const void* q,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  head_dim: 8, 16, 32, 64 or 128.
-// block_size >= 1.  body: 0 the fp32 CUDA-core body, 1 the tensor-core body
-// (bfloat16 only).  Returns the CUDA error of the launch (0 on success), or
+// dtype: 0 float32, 1 bfloat16.  head_dim: 8, 16, 32, 64, 112 (Kimi K2) or
+// 128.  block_size >= 1.  body: 0 the fp32 CUDA-core body, 1 the
+// tensor-core body (bfloat16 only).  Returns the CUDA error of the launch (0 on success), or
 // -1 for a dtype this library was not built for.
 extern "C" int block_diffusion_attn(const void* q, const void* k,
                                     const void* v, const void* lengths,

@@ -591,6 +591,7 @@ cudaError_t launch_dim(int D, int body, int rpw, int S, const void* q,
   REPRO_HEAD_DIM(16)
   REPRO_HEAD_DIM(32)
   REPRO_HEAD_DIM(64)
+  REPRO_HEAD_DIM(112)
   REPRO_HEAD_DIM(128)
 #undef REPRO_HEAD_DIM
   return cudaErrorInvalidValue;
@@ -598,11 +599,11 @@ cudaError_t launch_dim(int D, int body, int rpw, int S, const void* q,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  head_dim: 8, 16, 32, 64 or 128.  body: 0
-// the fp32 CUDA-core body (rpw: rows per warp, 0 by row count, 1 or 8), 1
-// the tensor-core body (bfloat16 only) with S >= 1 splits; S > 1 needs a
-// float32 scratch of S*B*c*H*(D+2) and launches the merge kernel after the
-// split kernel.  Returns the CUDA error of the launches (0 on success), or
+// dtype: 0 float32, 1 bfloat16.  head_dim: 8, 16, 32, 64, 112 (Kimi K2) or
+// 128.  body: 0 the fp32 CUDA-core body (rpw: rows per warp, 0 by row
+// count, 1 or 8), 1 the tensor-core body (bfloat16 only) with S >= 1
+// splits; S > 1 needs a float32 scratch of S*B*c*H*(D+2) and launches the
+// merge kernel after the split kernel.  Returns the CUDA error of the launches (0 on success), or
 // -1 for a dtype this library was not built for.
 extern "C" int paged_chunk_attn(const void* q, const void* k_pages,
                                 const void* v_pages, const void* block_tables,

@@ -1,4 +1,5 @@
-"""Core neural-net layers: RMSNorm, RoPE, GQA attention partials, gated MLP.
+"""Core neural-net layers: RMSNorm, RoPE / M-RoPE, GQA attention partials,
+gated MLP.
 
 Plain functions on tensors; parameters come from the flat param dict
 (one layer's slice, keyed by the name under ``mixer/`` or ``ffn/``).  The
@@ -61,9 +62,36 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def apply_mrope(x, positions3, theta: float, sections):
+    """Qwen2-VL multimodal RoPE: x [B, T, H, D], positions3 [B, 3, T]
+    (temporal, height, width ids); ``sections`` gives each component's
+    rotary dims (summing to D/2), each sliced from the full inverse
+    frequency table in turn."""
+    d = x.shape[-1]
+    assert sum(sections) == d // 2, (sections, d)
+    inv = 1.0 / (theta ** (np.arange(0, d, 2, dtype=np.float32) / d))
+    inv = torch.from_numpy(np.asarray(inv, np.float32)).to(x.device)
+    angs, lo = [], 0
+    for comp, sec in enumerate(sections):
+        pos = positions3[:, comp, :]                        # [B, T]
+        angs.append(pos[..., None].float() * inv[lo:lo + sec])
+        lo += sec
+    ang = torch.cat(angs, dim=-1)[:, :, None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def rope_for(cfg: ArchConfig, x, positions):
+    """RoPE, or M-RoPE for a config with ``mrope_sections``: positions
+    [B, T], or [B, 3, T] for M-RoPE (a [B, T] array means t = h = w, the
+    text-only case)."""
     if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE (vlm family) is not ported yet")
+        if positions.dim() == 2:
+            positions = positions[:, None, :].expand(
+                positions.shape[0], 3, positions.shape[1])
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return apply_rope(x, positions, cfg.rope_theta)
 
 

@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense family, on the paged KV pool.
+"""Decoder-only LM, the dense, moe and vlm families, on the paged KV pool.
 
 The serving entry points of the JAX package's ``TransformerLM`` for the
 paged path, with the same arguments and results:
@@ -13,6 +13,12 @@ paged path, with the same arguments and results:
 * ``prefill_paged`` — the wave prefill: one forward over a whole admission
   wave's prompts (block-causal attention, the block-diffusion kernel once
   per layer) that scatters their KV into the pool.
+
+Every layer is attention then an FFN: the gated MLP, or the MoE block
+(:mod:`repro_torch.models.moe`) when the config has experts; vlm configs
+rotate q and k by M-RoPE and may replace token embeddings with
+precomputed multimodal ones (``mm_embeds`` where ``mm_mask``).  The
+recurrent families (ssm, hybrid) and encdec are not ported yet.
 
 The layer stack is a Python loop over the stacked ``[L, …]`` params.  The
 page pool ``{"k_pages", "v_pages"}`` ``[L,P,ps,KVH,hd]`` is updated **in
@@ -36,6 +42,7 @@ from repro_torch.models.layers import (attn_output, block_causal_mask,
                                        init_attention, init_mlp, init_norm,
                                        mlp_block, qkv_project, rms_norm,
                                        sdpa_partial)
+from repro_torch.models.moe import init_moe, moe_block
 
 _BLOCK = "blocks/pos0/"
 
@@ -91,16 +98,22 @@ def write_pages(cache, dst, k_new, v_new):
 
 
 class TransformerLM:
-    """Dense decoder-only LM (paged serving path)."""
+    """Decoder-only LM of the attention-only families (paged serving
+    path)."""
 
-    PAGED_FAMILIES = ("dense",)
+    PAGED_FAMILIES = ("dense", "moe", "vlm")
+    _FFN_INIT = {"mlp": init_mlp, "moe": init_moe}
 
     def __init__(self, cfg: ArchConfig):
-        if cfg.family != "dense":
+        if cfg.family not in self.PAGED_FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported to repro_torch yet")
         self.cfg = cfg
         self.n_periods = cfg.n_layers
+
+    def _positions(self):
+        """(mixer, ffn) kinds of the one position in each layer."""
+        return [("attn", "moe" if self.cfg.n_experts > 0 else "mlp")]
 
     # ------------------------------------------------------------------
     # Init
@@ -116,8 +129,9 @@ class TransformerLM:
         n = self.n_periods
         params = {"embed": embed_init(generator, (cfg.vocab_size, cfg.d_model),
                                       cfg.pdt, device)}
+        (_, ffn), = self._positions()
         for sub, fn in (("norm1", init_norm), ("mixer", init_attention),
-                        ("norm2", init_norm), ("ffn", init_mlp)):
+                        ("norm2", init_norm), ("ffn", self._FFN_INIT[ffn])):
             for k, v in fn(generator, cfg, device, n).items():
                 params[f"{_BLOCK}{sub}/{k}"] = v
         params["final_norm/scale"] = init_norm(generator, cfg, device)["scale"]
@@ -136,8 +150,15 @@ class TransformerLM:
     # ------------------------------------------------------------------
     # Embedding / head
     # ------------------------------------------------------------------
-    def embed(self, params, tokens):
-        return params["embed"][tokens.long()].to(self.cfg.cdt)
+    def embed(self, params, tokens, mm_embeds=None, mm_mask=None):
+        """Token embeddings [B,T,d]; where ``mm_mask`` [B,T] is set, the
+        precomputed multimodal embeddings ``mm_embeds`` [B,T,d] instead."""
+        cd = self.cfg.cdt
+        x = params["embed"][tokens.long()].to(cd)
+        if mm_embeds is not None:
+            x = torch.where(mm_mask[..., None].to(x.device),
+                            mm_embeds.to(device=x.device, dtype=cd), x)
+        return x
 
     def head(self, params, x):
         cfg = self.cfg
@@ -176,9 +197,17 @@ class TransformerLM:
         out = combine_partials([paged, window], x.dtype)
         return attn_output(p, cfg, out), (k, v)
 
+    def _ffn_apply(self, kind, p, x):
+        if kind == "mlp":
+            return mlp_block(p, self.cfg, x)
+        if kind == "moe":
+            return moe_block(p, self.cfg, x)
+        raise ValueError(kind)
+
     def _stack(self, params, x, positions, shared, cache):
         """Run the layer stack; returns (x, {"k", "v"} [L,B,T,KVH,hd])."""
         cfg = self.cfg
+        (_, ffn), = self._positions()
         ks, vs = [], []
         for l in range(self.n_periods):
             h = rms_norm(x, params[f"{_BLOCK}norm1/scale"][l], cfg.norm_eps)
@@ -187,7 +216,7 @@ class TransformerLM:
                                    cache["v_pages"][l])
             x = x + y
             h = rms_norm(x, params[f"{_BLOCK}norm2/scale"][l], cfg.norm_eps)
-            x = x + mlp_block(self._sub(params, "ffn", l), cfg, h)
+            x = x + self._ffn_apply(ffn, self._sub(params, "ffn", l), h)
             ks.append(k)
             vs.append(v)
         return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -240,7 +269,8 @@ class TransformerLM:
         return shared
 
     def prefill_paged(self, params, cache, tokens, lengths, block_tables,
-                      head_mode: str = "logits", *, impl: str = "kernel"):
+                      mm_embeds=None, mm_mask=None, head_mode: str = "logits",
+                      *, impl: str = "kernel"):
         """Batched prompt forward writing KV into the page pool (wave
         prefill): the whole admission wave runs as ONE forward.
 
@@ -268,7 +298,7 @@ class TransformerLM:
         shared = {"self_flash": {
             "lengths": lengths, "impl": impl,
             "block_size": cfg.block_size if cfg.diffusion else 1}}
-        x = self.embed(params, tokens)
+        x = self.embed(params, tokens, mm_embeds, mm_mask)
         x, kv = self._stack(params, x, positions, shared, cache)
         idx = torch.clamp(lengths.long() - 1, 0, T - 1)
         xl = x[torch.arange(B, device=dev), idx][:, None]
@@ -283,7 +313,8 @@ class TransformerLM:
         return logits, cache
 
     def prefill_chunk_paged(self, params, cache, tokens, offsets, valid,
-                            block_tables, *, impl: str = "kernel"):
+                            block_tables, *, impl: str = "kernel",
+                            mm_embeds=None, mm_mask=None):
         """One resumable prefill chunk per row: forward prompt tokens
         [offsets, offsets + valid) against the pages already written by
         earlier chunks (``ctx_lens = offsets``), and write this chunk's KV
@@ -301,7 +332,7 @@ class TransformerLM:
         validm = offs[None, :] < valid[:, None]
         shared = self._paged_shared(positions, validm, T, block_tables,
                                     offsets, impl)
-        x = self.embed(params, tokens)
+        x = self.embed(params, tokens, mm_embeds, mm_mask)
         x, kv = self._stack(params, x, positions, shared, cache)
         idx = torch.clamp(valid.long() - 1, 0, T - 1)
         xl = x[torch.arange(B, device=dev), idx][:, None]
@@ -315,7 +346,8 @@ class TransformerLM:
 
     def chunk_forward_paged(self, params, cache, win_tokens, win_start,
                             win_valid, block_tables, ctx_lens, *,
-                            impl: str = "kernel"):
+                            impl: str = "kernel", mm_embeds=None,
+                            mm_mask=None):
         """Diffusion-window forward against the paged prefix cache.
         ctx_lens [B] is the committed prefix length per row (0 for padded
         rows — their paged partial is empty and the in-window diagonal
@@ -327,7 +359,7 @@ class TransformerLM:
         valid = offs[None, :] < win_valid[:, None]
         shared = self._paged_shared(positions, valid, c, block_tables,
                                     ctx_lens, impl)
-        x = self.embed(params, win_tokens)
+        x = self.embed(params, win_tokens, mm_embeds, mm_mask)
         x, kv = self._stack(params, x, positions, shared, cache)
         return self.head(params, x), kv
 
@@ -346,14 +378,15 @@ class TransformerLM:
 
     def decode_step_paged(self, params, cache, win_tokens, win_start,
                           win_valid, block_tables, ctx_lens, n_adv, *,
-                          impl: str = "kernel"):
+                          impl: str = "kernel", mm_embeds=None,
+                          mm_mask=None):
         """One fused paged decode iteration: chunk-forward + freeze +
         on-device sampling.  ``n_adv`` [B] is the number of leading window
         KV entries to freeze (known before the step).  Returns (conf [B,c]
         fp32, tok [B,c] int32, cache) — the cache updated in place."""
         logits, win_kv = self.chunk_forward_paged(
             params, cache, win_tokens, win_start, win_valid, block_tables,
-            ctx_lens, impl=impl)
+            ctx_lens, impl=impl, mm_embeds=mm_embeds, mm_mask=mm_mask)
         self.freeze_paged(cache, win_kv, block_tables, win_start, n_adv)
         conf, tok = softmax_confidence_device(logits)
         return conf, tok, cache

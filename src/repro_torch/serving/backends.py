@@ -6,9 +6,9 @@
   deterministically on CPU.
 * :class:`ModelBackend` — real-model backend: a PyTorch model runs
   end-to-end on its device (CUDA by default); commits come from actual
-  softmax confidences.  The dense family serves through the unified paged
-  KV pool and the hand-written CUDA chunked-paged-attention kernel (its
-  plain version on CPU tensors).
+  softmax confidences.  The attention-only families (dense, moe, vlm)
+  serve through the unified paged KV pool and the hand-written CUDA
+  chunked-paged-attention kernel (its plain version on CPU tensors).
 
 Both expose the same protocol:
     can_admit(request)        -> bool
@@ -818,7 +818,7 @@ class SimBackend:
 # ===========================================================================
 
 class ModelBackend:
-    """Real-model backend (dense family, paged KV pool).
+    """Real-model backend (attention-only families, paged KV pool).
 
     Committed KV lives in a :class:`PagedKVAllocator`-owned page pool on the
     model's device, read through block tables by the chunked-paged-attention

@@ -5,7 +5,10 @@ and nvcc; skipped elsewhere).  Run on the card with
 
 Each kernel runs under every forced variant of its dtype: the body the
 wrapper picks, the CUDA-core body, and (paged, bf16) the tensor-core body
-with one split and with eight.
+with one split and with eight.  The moe and vlm families' shapes (Llama-4
+Scout, Qwen2-VL-2B, Kimi K2: GQA groups 5 and 6, head dim 112; chip_smoke.py
+shapes (i)-(n)) run in bf16 under both bodies, the paged ones at the picked
+split count and at one split.
 
 Tolerances as tests/test_kernels.py: fp32 2e-5 / bf16 3e-2 relative on acc,
 m within rtol 1e-5 / atol 1e-4; the block-diffusion output within 2e-5 /
@@ -57,10 +60,34 @@ def cuda():
     return torch.device("cuda")
 
 
+RAGGED_CTX = [0, 1, 15, 16, 17, 2048, 700, 1333]
+FAMILY_SHAPES = {
+    # chip_smoke.py shapes (i)-(k): B 8, c 32, page 16, ragged ctx
+    "i_decode_scout": (8, 32, 40, 8, 128, 16, 128, RAGGED_CTX),
+    "j_decode_qwen2vl": (8, 32, 12, 2, 128, 16, 128, RAGGED_CTX),
+    "k_decode_kimi_k2": (8, 32, 64, 8, 112, 16, 128, RAGGED_CTX),
+}
+# bf16: the picked body and split count, one split, the CUDA-core body
+FAMILY_VARIANTS = [v for v in VARIANTS if v[0] == "bfloat16"
+                   and v[1] != "tensor_core_s8"]
+
+
 @pytest.mark.parametrize("dtype, variant, forced", VARIANTS,
                          ids=[f"{d}-{v}" for d, v, _ in VARIANTS])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_kernel_matches_plain_version(cuda, shape, dtype, variant, forced):
+    _check_paged(cuda, shape, dtype, forced)
+
+
+@pytest.mark.parametrize("dtype, variant, forced", FAMILY_VARIANTS,
+                         ids=[f"{d}-{v}" for d, v, _ in FAMILY_VARIANTS])
+@pytest.mark.parametrize("shape", sorted(FAMILY_SHAPES))
+def test_kernel_matches_plain_version_families(cuda, shape, dtype, variant,
+                                               forced):
+    _check_paged(cuda, FAMILY_SHAPES[shape], dtype, forced)
+
+
+def _check_paged(cuda, shape, dtype, forced):
     B, c, H, KVH, D, ps, n_slots, lens = shape
     dtype = getattr(torch, dtype)
     rng = np.random.default_rng(42)
@@ -106,6 +133,10 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     ln = torch.zeros((1,), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         cpa.paged_chunk_attention_kernel(q, kp, kp, t, ln)
+    q96 = torch.zeros((1, 1, 4, 96), dtype=torch.bfloat16, device=cuda)
+    kp96 = torch.zeros((2, 16, 2, 96), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        cpa.paged_chunk_attention_kernel(q96, kp96, kp96, t, ln)
     q, kp = q[..., :8].contiguous(), kp[..., :8].contiguous()
     with pytest.raises(ValueError, match="rows_per_warp"):
         cpa.paged_chunk_attention_kernel(q, kp, kp, t, ln, rows_per_warp=4)
@@ -141,12 +172,34 @@ BD_VARIANTS = [
 ]
 
 
+WAVE_LENGTHS = [512, 0, 130, 257, 384, 449, 200, 511]
+BD_FAMILY_SHAPES = {
+    # chip_smoke.py shapes (l)-(n): the wave of (e) at the families' heads
+    "l_wave_scout": (8, 512, 40, 8, 128, 32, WAVE_LENGTHS),
+    "m_wave_qwen2vl": (8, 512, 12, 2, 128, 32, WAVE_LENGTHS),
+    "n_wave_kimi_k2": (8, 512, 64, 8, 112, 32, WAVE_LENGTHS),
+}
+BD_FAMILY_VARIANTS = [v for v in BD_VARIANTS if v[0] == "bfloat16"]
+
+
 @pytest.mark.parametrize("dtype, variant, forced", BD_VARIANTS,
                          ids=[f"{d}-{v}" for d, v, _ in BD_VARIANTS])
 @pytest.mark.parametrize("shape", sorted(BD_SHAPES))
 def test_block_diffusion_kernel_matches_plain_version(cuda, shape, dtype,
                                                       variant, forced):
-    B, T, H, KVH, D, bs, lens = BD_SHAPES[shape]
+    _check_bd(cuda, BD_SHAPES[shape], dtype, forced)
+
+
+@pytest.mark.parametrize("dtype, variant, forced", BD_FAMILY_VARIANTS,
+                         ids=[f"{d}-{v}" for d, v, _ in BD_FAMILY_VARIANTS])
+@pytest.mark.parametrize("shape", sorted(BD_FAMILY_SHAPES))
+def test_block_diffusion_kernel_matches_plain_version_families(
+        cuda, shape, dtype, variant, forced):
+    _check_bd(cuda, BD_FAMILY_SHAPES[shape], dtype, forced)
+
+
+def _check_bd(cuda, shape, dtype, forced):
+    B, T, H, KVH, D, bs, lens = shape
     dtype = getattr(torch, dtype)
     rng = np.random.default_rng(42)
     mk = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
@@ -182,6 +235,12 @@ def test_block_diffusion_kernel_rejects_what_it_does_not_take(cuda):
             torch.zeros((1, 8, 4, 12), device=cuda),
             torch.zeros((1, 8, 2, 12), device=cuda),
             torch.zeros((1, 8, 2, 12), device=cuda), ln, block_size=4)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        bda.block_diffusion_attention_kernel(
+            torch.zeros((1, 8, 4, 96), dtype=torch.bfloat16, device=cuda),
+            torch.zeros((1, 8, 2, 96), dtype=torch.bfloat16, device=cuda),
+            torch.zeros((1, 8, 2, 96), dtype=torch.bfloat16, device=cuda),
+            ln, block_size=4)
     with pytest.raises(ValueError, match="dtype"):
         bda.block_diffusion_attention_kernel(q, k.bfloat16(), k, ln,
                                              block_size=4)
@@ -195,3 +254,32 @@ def test_block_diffusion_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="body"):
         bda.block_diffusion_attention_kernel(q, k, k, ln, block_size=4,
                                              body="wgmma")
+
+
+def test_grouped_matmul_cuda_matches_loop(cuda):
+    """The MoE grouped product on the card: ``torch._grouped_mm`` against
+    the plain loop (empty groups, rows past the last group 0), without a
+    host sync; float32 raises (no quiet fallback)."""
+    from repro_torch.models import moe
+
+    rng = np.random.default_rng(7)
+    sizes = [5, 0, 17, 1, 0, 9, 0, 0]
+    M, K, N = 40, 256, 128
+    rows = torch.as_tensor(rng.normal(size=(M, K)), dtype=torch.bfloat16,
+                           device=cuda)
+    w = torch.as_tensor(rng.normal(size=(len(sizes), K, N)) / 16,
+                        dtype=torch.bfloat16, device=cuda)
+    gs = torch.as_tensor(sizes, dtype=torch.int32, device=cuda)
+    calls = moe.GROUPED_CALLS
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = moe.grouped_matmul(rows, w, gs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert moe.GROUPED_CALLS == calls + 1
+    want = moe.grouped_matmul_loop(rows, w, gs)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+    assert torch.all(got[sum(sizes):] == 0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        moe.grouped_matmul(rows.float(), w.float(), gs)

@@ -3,13 +3,15 @@ weights and the same requests through each package's ``ServingEngine`` and
 paged ``ModelBackend`` must commit identical tokens per request, with the
 same chunk/batch history and the same dispatch and host-byte counters —
 in elastic, fixed-chunk and AR modes, and with wave prefill in slide, OBS
-and AR.  The reference runs its jnp oracle (``attn_impl="ref"``; its
+and AR; the moe (16 experts, the sorted path) and vlm (Qwen2-VL SMOKE)
+families in elastic and wave modes.  The reference runs its jnp oracle (``attn_impl="ref"``; its
 kernel-vs-oracle identity is pinned by its own tests; its wave prefill
 runs the XLA flash path), the port its default path (the kernels' plain
 versions on CPU).  The host-only half is held by an identical
 ``SimBackend`` report.
 """
 
+import dataclasses
 import hashlib
 
 import jax
@@ -23,6 +25,7 @@ from repro.models import build_model as jax_build
 from repro.models.common import ArchConfig as JaxArchConfig
 import repro_torch.core as tcore
 import repro_torch.serving as tserving
+from repro_torch.configs import get_smoke_config
 from repro_torch.core.latency_model import CPU_HOST as T_CPU_HOST
 from repro_torch.models import ArchConfig, build_model, params_from_jax
 
@@ -31,6 +34,13 @@ CFG = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4,
            confidence_threshold=0.6)
 # tests/test_prefill_interleave.py's AR config (causal prefill)
 CFG_AR = {**CFG, "name": "tar", "diffusion": False}
+# tests/test_torch_model.py's 16-expert config (the sorted MoE path)
+CFG_MOE16 = {**CFG, "name": "moe16", "family": "moe", "d_ff": 64,
+             "moe_d_ff": 48, "n_experts": 16, "top_k": 2}
+FAMILY_CFGS = {
+    "moe16": CFG_MOE16,
+    "qwen2_vl_smoke": dataclasses.asdict(get_smoke_config("qwen2-vl-2b")),
+}
 SIDES = {
     "jax": (jcore, jserving, J_CPU_HOST),
     "torch": (tcore, tserving, T_CPU_HOST),
@@ -67,10 +77,9 @@ def _requests(serving, n, seed=0):
     return reqs
 
 
-def _scheduler(side, mode):
+def _scheduler(side, mode, cfg):
     core, serving, cpu_host = SIDES[side]
     if mode == "elastic":
-        cfg = (JaxArchConfig if side == "jax" else ArchConfig)(**CFG)
         return core.ElasticScheduler.from_analytic(
             core.AnalyticDeviceModel(cfg, cpu_host),
             prior_tokens_per_step=serving.DATASETS["sharegpt"]
@@ -89,7 +98,8 @@ def _serve(side, weights, mode):
         be = serving.ModelBackend(jm, jparams, attn_impl="ref", **kw)
     else:
         be = serving.ModelBackend(tm, tparams, device="cpu", **kw)
-    eng = serving.ServingEngine(be, _scheduler(side, mode), max_batch=4)
+    cfg = jm.cfg if side == "jax" else tm.cfg
+    eng = serving.ServingEngine(be, _scheduler(side, mode, cfg), max_batch=4)
     outs = {}
     release = be.release
 
@@ -114,6 +124,33 @@ def test_model_backend_commits_same_tokens(weights, mode):
     assert rep_t.batch_history == rep_j.batch_history
     assert (rep_t.total_tokens, rep_t.computed_tokens) == \
         (rep_j.total_tokens, rep_j.computed_tokens)
+    assert cnt_t == cnt_j
+    assert cnt_t[3] == cnt_t[4]                 # pool fully drained
+
+
+@pytest.mark.parametrize("mode", ["elastic", "wave"])
+@pytest.mark.parametrize("which", sorted(FAMILY_CFGS))
+def test_model_backend_families_commit_same_tokens(which, mode):
+    """The moe and vlm families through both engines: identical committed
+    tokens per request and the same counters, with chunked prefill under
+    the elastic scheduler, and with wave prefill under a fixed chunk."""
+    w = _bridged(FAMILY_CFGS[which])
+    if mode == "elastic":
+        (rep_j, out_j, cnt_j), (rep_t, out_t, cnt_t) = (
+            _serve(side, w, "elastic") for side in ("jax", "torch"))
+        assert rep_t.chunk_history == rep_j.chunk_history
+        n = 7
+    else:
+        (rep_j, out_j, be_j, _), (rep_t, out_t, be_t, shapes) = (
+            _serve_fixed(side, w, "slide", "wave") for side in ("jax",
+                                                                "torch"))
+        cnt_j, cnt_t = ((be.decode_dispatches, be.prefill_dispatches,
+                         be.host_transfer_bytes, be.kv.free_pages,
+                         be.kv.n_pages) for be in (be_j, be_t))
+        assert len(shapes["prefill_paged"]) == be_t.prefill_dispatches >= 1
+        n = 6
+    assert len(out_t) == len(out_j) == n
+    assert out_t == out_j
     assert cnt_t == cnt_j
     assert cnt_t[3] == cnt_t[4]                 # pool fully drained
 
