@@ -11,7 +11,8 @@ Phases, in order (any failed check raises and the script exits non-zero):
 3. kernel phase: each kernel's wrapper on CUDA tensors against its plain
    PyTorch version on the same inputs, at the serving path's shapes (those
    of SDAR-8B, and of Llama-4 Scout, Qwen2-VL-2B and Kimi K2: GQA groups 5
-   and 6, head dim 112), under each body (bf16: the tensor-core body the
+   and 6, head dim 112; and the hybrid's: (o) the slot view, one page of
+   640 tokens a request, (p) the [1, 640] prefill), under each body (bf16: the tensor-core body the
    wrapper picks and the first, CUDA-core design; the paged kernel's
    tensor-core body also with one split),
    with times (CUDA events; the block-diffusion kernel beside
@@ -55,7 +56,28 @@ Phases, in order (any failed check raises and the script exits non-zero):
    phase 5 (the grouped products' device time too), then the elastic
    serving run of phase 7;
 9. the vlm family: Qwen2-VL-2B at full width and depth (text only) served
-   elastic with chunked prefill and with wave prefill, as in phase 7.
+   elastic with chunked prefill and with wave prefill, as in phase 7;
+10. the ssm family: RWKV6-1.6B at full width and depth (24 layers, d_model
+   2048, bf16, random weights drawn on the card) on the dense-slot path: one
+   ``prefill`` of a [1, 640] padded prompt and one AR ``advance_states`` at
+   B 8, T 1, each against the same dispatch with the weights in fp32
+   (readings: no hand kernel runs here), both profiled with the WKV scan's
+   device time; then an AR serving run through the recurrent-slot
+   ``ModelBackend`` (8 requests, ``FixedScheduler(1)``, max_len 640): every
+   request finishes, token utilization 1.0, no non-finite logits, a
+   released slot's states are zero again, the slot cache never moves;
+11. the hybrid family: Jamba-1.5-Large at full width cut to one period (8
+   layers) and 10 experts (the card's 80 GB): a block-pinned elastic
+   serving run (8 requests, max_len 640) — block-diffusion launches = 1
+   attention layer x admissions, paged launches = 1 x (``chunk_forward`` +
+   ``advance_states`` dispatches), the slot cache never moves; then one
+   ``prefill`` of a [1, 640] padded prompt (block-diffusion kernel vs
+   plain) and one ``chunk_forward`` at B 8, c 32 with every slot at ctx 512
+   (the paged kernel on the slot view vs plain), MoE routing pinned to the
+   plain path's experts, held at limits their controls must break
+   (free-running expert flips, and the plain split version's, as
+   readings), and the ``chunk_forward`` profiled (the Mamba scans', the
+   paged kernel's and ``_grouped_mm``'s device time).
    Each model is freed before the next is drawn.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -160,6 +182,10 @@ KERNEL_SHAPES = [
     ("i_decode_scout", 8, 32, 40, 8, 128, 16, "bfloat16", RAGGED_CTX),
     ("j_decode_qwen2vl", 8, 32, 12, 2, 128, 16, "bfloat16", RAGGED_CTX),
     ("k_decode_kimi_k2", 8, 32, 64, 8, 112, 16, "bfloat16", RAGGED_CTX),
+    # the hybrid's dense-slot cache partial: Jamba's 64/8 heads, one page of
+    # S = 640 tokens a request (the slot cache read as B pages)
+    ("o_slot_jamba", 8, 32, 64, 8, 128, 640, "bfloat16",
+     [0, 1, 31, 32, 33, 639, 300, 512]),
 ]
 
 
@@ -182,7 +208,8 @@ def bound(B, c, H, KVH, D, ps, dtype, ctx):
 # wave of 8 prompts padded to T 512 (one batch-padding row, lengths 0);
 # (h) is the SMOKE config the CLI serves (head_dim 8, fp32, block 8) at
 # T 48, which is not a power of two.
-# (l)-(n) are the wave of (e) at the moe and vlm families' heads.
+# (l)-(n) are the wave of (e) at the moe and vlm families' heads; (p) the
+# hybrid's [1, 640] padded slot prefill.
 WAVE_LENGTHS = [512, 0, 130, 257, 384, 449, 200, 511]
 BD_SHAPES = [
     # name, B, T, H, KVH, D, block_size, dtype, lengths
@@ -193,6 +220,8 @@ BD_SHAPES = [
     ("l_wave_scout", 8, 512, 40, 8, 128, 32, "bfloat16", WAVE_LENGTHS),
     ("m_wave_qwen2vl", 8, 512, 12, 2, 128, 32, "bfloat16", WAVE_LENGTHS),
     ("n_wave_kimi_k2", 8, 512, 64, 8, 112, 32, "bfloat16", WAVE_LENGTHS),
+    # the hybrid's padded slot prefill at Jamba's heads
+    ("p_prefill_jamba", 1, 640, 64, 8, 128, 32, "bfloat16", [417]),
 ]
 
 
@@ -810,14 +839,16 @@ def sweep_margins(paths, dispatch, tfm, margin_of) -> list[dict]:
 # profile phase
 # ---------------------------------------------------------------------------
 
-def profile_dispatch(dispatch, kernel: str, iters: int, n: int,
+def profile_dispatch(dispatch, kernel: str | None, iters: int, n: int,
                      ops: tuple = ()) -> dict:
     """Where one dispatch's time goes: wall per dispatch (host clock around
     ``torch.cuda.synchronize``, median of ``iters``) through the kernel,
     the plain version and the kernel again, then ``torch.profiler`` over
     ``n`` kernel-path dispatches: device time, busy share of the wall, the
-    share of the device kernel whose name holds ``kernel``, and the device
-    time of each PyTorch op in ``ops`` (the kernels it launched)."""
+    share of the device kernel whose name holds ``kernel`` (None: a
+    dispatch that runs no hand kernel), and the device time of each
+    PyTorch op or ``record_function`` range in ``ops`` (the kernels
+    launched inside it)."""
     import torch
 
     def wall_ms(impl):
@@ -840,16 +871,21 @@ def profile_dispatch(dispatch, kernel: str, iters: int, n: int,
             dispatch("kernel")
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    dev = torch.autograd.DeviceType
+    # device kernels only: a record_function range's span on the device
+    # timeline is not a kernel
     kern = sorted(((e.key, e.self_device_time_total, e.count)
                    for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                   if e.device_type == dev.CUDA and e.key not in ops
+                   and not getattr(e, "is_user_annotation", False)),
                   key=lambda r: -r[1])
     busy = sum(t for _, t, _ in kern)
-    mine = sum(t for k, t, _ in kern if kernel in k)
-    if not mine > 0:
+    mine = sum(t for k, t, _ in kern if kernel and kernel in k)
+    if kernel and not mine > 0:
         raise AssertionError(f"profile: {kernel} shows no device time")
     op_us = {op: sum(e.device_time_total for e in prof.key_averages()
-                     if e.key == op) for op in ops}
+                     if e.key == op and e.device_type == dev.CPU)
+             for op in ops}
     for op, t in op_us.items():
         if not t > 0:
             raise AssertionError(f"profile: {op} shows no device time")
@@ -868,15 +904,16 @@ def profile_dispatch(dispatch, kernel: str, iters: int, n: int,
                      "calls_per_dispatch": c / n} for k, t, c in kern[:8]]}
 
 
-def log_profile(what: str, row: dict, kernel: str):
+def log_profile(what: str, row: dict, kernel: str | None):
     log(f"profile {what}: wall ms kernel {row['wall_ms_kernel'][0]:.2f}, "
         f"{row['wall_ms_kernel'][1]:.2f}, plain {row['wall_ms_plain'][0]:.2f};"
         f" profiled wall {row['wall_ms_profiled']:.2f} ms, device "
         f"{row['device_ms_per_dispatch']:.2f} ms (busy share "
         f"{row['device_busy_share']:.3f}) in "
-        f"{row['device_kernels_per_dispatch']:.0f} kernels; {kernel} kernel "
-        f"{row['kernel_ms_per_dispatch']:.3f} ms (share of device "
-        f"{row['kernel_share_of_device']:.3f})" + "".join(
+        f"{row['device_kernels_per_dispatch']:.0f} kernels" + (
+            f"; {kernel} kernel {row['kernel_ms_per_dispatch']:.3f} ms "
+            f"(share of device {row['kernel_share_of_device']:.3f})"
+            if kernel else "") + "".join(
             f"; {op} {r['ms_per_dispatch']:.3f} ms (share of device "
             f"{r['share_of_device']:.3f})" for op, r in row["ops"].items()))
     for r in row["top"]:
@@ -936,10 +973,42 @@ MOE_LIMITS = {"logits_rel": 0.2, "conf_rel": 0.12,
 MOE_CONTROL_BREAKS = tuple(MOE_LIMITS)
 
 
-def moe_model_phase(model, params, pool, seed: int) -> dict:
+def routed(run, pin=None):
+    """``run()`` with every MoE layer's router probabilities and own top-k
+    experts recorded, call by call; with ``pin`` ([n, T, k]) the i-th call
+    routes to ``pin[i % n]`` instead (gates from its own probabilities,
+    renormalised).  Returns (run's result, probabilities, own experts)."""
     import torch
 
     import repro_torch.models.moe as moe
+
+    route = moe._route
+    probs, ids_own = [], []
+
+    def rec(x, router_w, top_k):
+        p = torch.softmax((x @ router_w.to(x.dtype)).float(), dim=-1)
+        gates, ids = route(x, router_w, top_k)
+        i = len(probs)
+        probs.append(p)
+        ids_own.append(ids)
+        if pin is not None:
+            ids = pin[i % len(pin)]
+            gates = p.gather(-1, ids.long())
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                        min=1e-9)
+        return gates, ids
+
+    moe._route = rec
+    try:
+        out = run()
+    finally:
+        moe._route = route
+    return out, probs, ids_own
+
+
+def moe_model_phase(model, params, pool, seed: int) -> dict:
+    import torch
+
     import repro_torch.models.transformer as tfm
     from repro_torch.kernels import chunked_paged_attn as cpa
 
@@ -948,36 +1017,20 @@ def moe_model_phase(model, params, pool, seed: int) -> dict:
     cache, tables = pool
     win, start, valid, n_adv = decode_inputs(model, [MOE_CTX] * MODEL_B,
                                              seed)
-    route = moe._route
 
     def dispatch(impl, pin=None):
         """decode_step_paged, then chunk_forward_paged for the logits; each
         layer's router probabilities and own choice of experts are kept,
         and with ``pin`` ([L, T, k]) the experts used are pin's."""
-        probs, ids_own = [], []
-
-        def rec(x, router_w, top_k):
-            p = torch.softmax((x @ router_w.to(x.dtype)).float(), dim=-1)
-            gates, ids = route(x, router_w, top_k)
-            layer = len(probs) % L
-            probs.append(p)
-            ids_own.append(ids)
-            if pin is not None:
-                ids = pin[layer]
-                gates = p.gather(-1, ids.long())
-                gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
-                                            min=1e-9)
-            return gates, ids
-
-        moe._route = rec
-        try:
+        def run():
             conf, tok, _ = model.decode_step_paged(
                 params, cache, win, start, valid, tables, start, n_adv,
                 impl=impl)
             logits, _ = model.chunk_forward_paged(
                 params, cache, win, start, valid, tables, start, impl=impl)
-        finally:
-            moe._route = route
+            return conf, tok, logits
+
+        (conf, tok, logits), probs, ids_own = routed(run, pin)
         if len(probs) != 2 * L:
             raise AssertionError(f"moe model: {len(probs)} routings, not "
                                  f"2 x {L}")
@@ -1431,6 +1484,534 @@ def compare_runs(wave: dict, chunked: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the recurrent families (ssm, hybrid) on the dense-slot path
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "rwkv6-1.6b"
+HYBRID_ARCH = "jamba-1.5-large-398b"
+# Jamba-1.5-Large does not fit one card even one 8-layer period deep at its
+# 16 experts (90.48 GB of bf16 weights); with 10 experts (still more than 8,
+# so the sorted path with grouped products, top-2) the period is 61.49 GB
+HYBRID_CUTS = {"n_layers": 8, "n_experts": 10}
+SLOT_LEN = 640            # the slot cache's max_len in phases 10 and 11
+PROMPT_LEN = 417          # the padded [1, 640] prefill's prompt (shape (p))
+SLOT_CTX_LEN = 512        # every slot's context in the hybrid window
+SCANS = ("selective_scan", "wkv_scan")
+# The hybrid phase holds each dispatch's attention layer at its call site in
+# the model: ``attn_rel`` = max |out - out_plain| / max |out_plain| over the
+# live rows, out the block-diffusion output (prefill) or the paged partial
+# normalised as acc / l (chunk_forward), the MoE routing pinned to the plain
+# path's experts.  A control run (the kernel's output or acc x (1 +
+# CONTROL_SKEW)) moves it by 0.03; rounding a bf16 result moves it by at
+# most 2^-8; the limit is half the skew.  The phase's first H100 run showed
+# that downstream readings cannot tell the control from the kernel: the
+# period's Mamba layers after the attention layer amplify bf16 rounding as
+# far as a 3% error (prefill logits 0.062 vs 0.074 of their std,
+# chunk_forward 0.094 vs 0.133), so logits, conf, tokens and states are
+# readings, beside the gap check on tokens.  The prefill's K/V come from the
+# attention layer's input, so they can differ only by the MoE's atomic
+# scatter-add order (a reading, ``kv_max_abs_diff``).
+HYBRID_LIMITS = {"attn_rel": 0.015}
+HYBRID_BREAKS = ("attn_rel",)
+
+
+def annotate_scans():
+    """Wrap the two recurrences of ``models/ssm.py`` in
+    ``torch.profiler.record_function`` ranges named as the functions, so a
+    profile can give their device time; undo with the returned function."""
+    import torch
+
+    from repro_torch.models import ssm
+
+    saved = {name: getattr(ssm, name) for name in SCANS}
+    for name, fn in saved.items():
+        def wrapped(*a, _fn=fn, _name=name):
+            with torch.profiler.record_function(_name):
+                return _fn(*a)
+        setattr(ssm, name, wrapped)
+
+    def undo():
+        for name, fn in saved.items():
+            setattr(ssm, name, fn)
+    return undo
+
+
+def padded_prompts(cfg, lengths, seed: int):
+    """Prompts of ``lengths`` tokens padded with zeros to SLOT_LEN (the
+    recurrent-slot admission's padding), on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    toks = np.zeros((len(lengths), SLOT_LEN), np.int64)
+    for i, n in enumerate(lengths):
+        toks[i, :n] = rng.integers(4, cfg.vocab_size - 8, n)
+    return (torch.as_tensor(toks, device=DEVICE),
+            torch.as_tensor(lengths, dtype=torch.int32, device=DEVICE))
+
+
+def ssm_phase(model, params, seed: int) -> dict:
+    """Phase 10's dispatches: one ``prefill`` of a [1, 640] padded prompt and
+    one AR ``advance_states`` at B 8, T 1 (from states a batched prefill
+    left), each in bf16 and again with the same weights in fp32 (readings:
+    the largest logit difference and top-1 agreement), then both profiled
+    with the WKV scan's device time."""
+    import torch
+
+    cfg = model.cfg
+    m32 = type(model)(cfg.replace(param_dtype="float32",
+                                  compute_dtype="float32"))
+    p32 = {k: v.float() for k, v in params.items()}
+    toks1, len1 = padded_prompts(cfg, [PROMPT_LEN], seed + 10)
+    lens8 = [SLOT_LEN * (2 + i) // 10 for i in range(MODEL_B)]  # 128-576
+    toks8, len8 = padded_prompts(cfg, lens8, seed + 11)
+    step = torch.as_tensor(
+        [[t] for t in range(5, 5 + MODEL_B)], device=DEVICE)
+    ones = torch.ones(MODEL_B, dtype=torch.int32, device=DEVICE)
+
+    def prefill(m, p, dtype):
+        cache = m.init_cache(1, SLOT_LEN, dtype=dtype, device=DEVICE)
+        logits, _ = m.prefill(p, toks1, len1, cache, head_mode="last")
+        return logits[:, 0]
+
+    def ar_cache(m, p, dtype):
+        cache = m.init_cache(MODEL_B, SLOT_LEN, dtype=dtype, device=DEVICE)
+        m.prefill(p, toks8, len8, cache, head_mode="none")
+        return cache
+
+    caches = {torch.bfloat16: ar_cache(model, params, torch.bfloat16),
+              torch.float32: ar_cache(m32, p32, torch.float32)}
+
+    def advance(m, p, dtype):
+        cache = caches[dtype]
+        logits, _ = m.advance_states(p, dict(cache, len=cache["len"].clone()),
+                                     step, ones)
+        return logits[:, 0]
+
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "prompt_len": PROMPT_LEN, "slot_len": SLOT_LEN, "ar_batch": MODEL_B,
+           "ar_prompt_lens": lens8}
+    for what, fn in (("prefill", prefill), ("advance_states", advance)):
+        lb = fn(model, params, torch.bfloat16).float()
+        lf = fn(m32, p32, torch.float32)
+        torch.cuda.synchronize()
+        for name, t in (("bf16", lb), ("fp32", lf)):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"ssm {what}: non-finite logits "
+                                     f"({name})")
+        res[what] = {"logits_max_abs_diff": float((lb - lf).abs().max()),
+                     "logits_std_fp32": float(lf.std()),
+                     "top1_agree": float((lb.argmax(-1) == lf.argmax(-1))
+                                         .float().mean()),
+                     "rows": lb.shape[0]}
+        log(f"ssm {what} ({cfg.name}, {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}): bf16 vs fp32 weights, logits max abs diff "
+            f"{res[what]['logits_max_abs_diff']:.4f} (fp32 logits std "
+            f"{res[what]['logits_std_fp32']:.4f}), top-1 agrees in "
+            f"{res[what]['top1_agree']:.3f} of {lb.shape[0]} rows")
+    del m32, p32, caches[torch.float32]
+    torch.cuda.empty_cache()
+
+    undo = annotate_scans()
+    try:
+        for what, fn, iters, n in (("prefill", prefill, 1, 1),
+                                   ("advance_states", advance, 5, 3)):
+            row = profile_dispatch(
+                lambda impl, fn=fn: fn(model, params, torch.bfloat16).cpu(),
+                None, iters, n, ops=("wkv_scan",))
+            res[what]["profile"] = row
+            log_profile(f"ssm {what} ({cfg.name})", row, None)
+    finally:
+        undo()
+    return res
+
+
+def attention_outputs(run):
+    """``run()`` with the output of every attention call of the model
+    recorded (the block-diffusion output, or the paged partial normalised as
+    acc / l), whichever route, kernel or plain, the call takes.  Returns
+    (run's result, outputs in call order)."""
+    import torch
+
+    import repro_torch.models.transformer as tfm
+
+    names = ("block_diffusion_attention", "block_diffusion_ref",
+             "paged_chunk_attention", "paged_chunk_ref")
+    saved = {name: getattr(tfm, name) for name in names}
+    outs = []
+
+    def recorder(fn):
+        def rec(*a, **k):
+            out = fn(*a, **k)
+            if isinstance(out, tuple):                    # (acc, m, l)
+                acc, _, l = out
+                outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+            else:
+                outs.append(out.float())
+            return out
+        return rec
+
+    for name, fn in saved.items():
+        setattr(tfm, name, recorder(fn))
+    try:
+        result = run()
+    finally:
+        for name, fn in saved.items():
+            setattr(tfm, name, fn)
+    return result, outs
+
+
+def hybrid_phase(model, params, seed: int) -> dict:
+    """Phase 11's dispatches, kernel path against plain path on the same
+    weights: one ``prefill`` of a [1, 640] padded prompt (the
+    block-diffusion kernel, shape (p)) and one ``chunk_forward`` at B 8,
+    c 32 with every slot at ctx 512 (the paged kernel on the slot view,
+    shape (o)), MoE routing pinned to the plain path's experts.  Each is
+    held at HYBRID_LIMITS with its control; the downstream readings (logits,
+    conf, tokens, states), free-running expert flips and the plain split
+    version's are printed; then the ``chunk_forward`` is profiled."""
+    import torch
+
+    import repro_torch.models.transformer as tfm
+    from repro_torch.kernels import chunked_paged_attn as cpa
+    from repro_torch.kernels.ops import softmax_confidence_device
+
+    cfg = model.cfg
+    toks, ln = padded_prompts(cfg, [PROMPT_LEN], seed + 20)
+
+    def attn_rel(outs, ref_outs, rows=None):
+        a, b = outs[0], ref_outs[0]
+        if rows is not None:
+            a, b = a[:, :rows], b[:, :rows]
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    def pre(impl, pin=None):
+        cache = model.init_cache(1, SLOT_LEN, dtype=torch.bfloat16,
+                                 device=DEVICE)
+
+        def run():
+            logits, _ = model.prefill(params, toks, ln, cache,
+                                      head_mode="last", impl=impl)
+            return logits[:, 0]
+
+        (logits, probs, ids), outs = attention_outputs(
+            lambda: routed(run, pin))
+        if len(outs) != model.paged_kv_dims()[0]:
+            raise AssertionError(f"hybrid prefill: {len(outs)} attention "
+                                 f"calls")
+        conf, tok = softmax_confidence_device(logits)
+        kv = torch.cat([cache[n][:, :, :PROMPT_LEN] for n in ("k", "v")])
+        states = torch.cat([t.float().flatten() for st in
+                            cache["states"].values() for t in st.values()])
+        for t in (logits, kv, states, outs[0]):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"hybrid prefill: non-finite output "
+                                     f"({impl})")
+        return conf, tok, logits, kv, torch.stack(ids), states, outs
+
+    p_plain = pre("ref")
+    p_kernel = pre("kernel", pin=p_plain[4])
+    p_free = pre("kernel")
+    exact_bd = tfm.block_diffusion_attention
+    tfm.block_diffusion_attention = \
+        lambda *a, **k: exact_bd(*a, **k) * (1 + CONTROL_SKEW)
+    try:
+        p_control = pre("kernel", pin=p_plain[4])
+    finally:
+        tfm.block_diffusion_attention = exact_bd
+    lr, sr = p_plain[2], p_plain[5]
+    lr_std, s_std = float(lr.std()), float(sr.std())
+    kv_diff = float((p_kernel[3].float() - p_plain[3].float()).abs().max())
+
+    def pre_readings(run):
+        return {"attn_rel": attn_rel(run[6], p_plain[6], PROMPT_LEN),
+                "logits_rel": float((run[2] - lr).abs().max()) / lr_std,
+                "states_rel": float((run[5] - sr).abs().max()) / s_std,
+                "tokens_differ": int((run[1] != p_plain[1]).sum())}
+
+    pre_sound, pre_ctl = pre_readings(p_kernel), pre_readings(p_control)
+    free_flips = int((p_free[4][..., 0] != p_plain[4][..., 0]).sum())
+    res = {"arch": cfg.name, "cuts": HYBRID_CUTS, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_experts": cfg.n_experts,
+           "limits": HYBRID_LIMITS, "control_breaks": HYBRID_BREAKS,
+           "prefill": {"T": SLOT_LEN, "length": PROMPT_LEN,
+                       "logits_std_plain": lr_std, "states_std_plain": s_std,
+                       "kv_max_abs_diff": kv_diff,
+                       "kernel_vs_plain": pre_sound,
+                       "control_vs_plain": pre_ctl,
+                       "own_routing_vs_plain": pre_readings(p_free),
+                       "own_routing_expert_flips": free_flips,
+                       "routed_pairs": p_plain[4][..., 0].numel()}}
+    log(f"hybrid prefill ({cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_experts} experts; [1, {SLOT_LEN}], length "
+        f"{PROMPT_LEN}; routing pinned to the plain path's): logits std "
+        f"{lr_std:.4f}, states std {s_std:.4f}, K/V max abs diff {kv_diff};"
+        f" own routing: top-1 expert differs in {free_flips} of "
+        f"{res['prefill']['routed_pairs']} (token, MoE layer) pairs")
+    for key in pre_sound:
+        log(f"  {key}: kernel {pre_sound[key]}  control (out x "
+            f"{1 + CONTROL_SKEW}) {pre_ctl[key]}  limit "
+            f"{HYBRID_LIMITS.get(key, 'none (a reading)')}")
+    del p_plain, p_kernel, p_free, p_control
+
+    # every slot at ctx 512: KV and states from a plain prefill of 8 prompts
+    cache = model.init_cache(MODEL_B, SLOT_LEN, dtype=torch.bfloat16,
+                             device=DEVICE)
+    toks8, len8 = padded_prompts(cfg, [SLOT_CTX_LEN] * MODEL_B, seed + 21)
+    model.prefill(params, toks8, len8, cache, head_mode="none", impl="ref")
+    win, start, valid, _ = decode_inputs(model, [SLOT_CTX_LEN] * MODEL_B,
+                                         seed)
+    ptr = cache["k"].data_ptr()
+
+    def dispatch(impl, pin=None):
+        def run():
+            logits, _ = model.chunk_forward(params, cache, win, start, valid,
+                                            impl=impl)
+            return logits
+
+        (logits, probs, ids), outs = attention_outputs(
+            lambda: routed(run, pin))
+        conf, tok = softmax_confidence_device(logits)
+        for t in (conf, logits, outs[0]):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"hybrid chunk_forward: non-finite "
+                                     f"output ({impl})")
+        return (conf, tok, logits, torch.stack(probs), torch.stack(ids),
+                outs)
+
+    plain = dispatch("ref")
+    free = dispatch("kernel")
+    kernel = dispatch("kernel", pin=plain[4])
+    plain_attn = tfm.paged_chunk_ref
+    splits = cpa.pick_splits(MODEL_B, MODEL_C, cfg.n_heads, cfg.n_kv_heads,
+                             SLOT_LEN, 1)
+    tfm.paged_chunk_ref = lambda *a, **k: cpa.paged_chunk_split_ref(
+        *a, splits=splits, **k)
+    try:
+        reorder = dispatch("ref")
+    finally:
+        tfm.paged_chunk_ref = plain_attn
+    exact = tfm.paged_chunk_attention
+
+    def skewed(*a, **k):
+        acc, m, l = exact(*a, **k)
+        return acc * (1 + CONTROL_SKEW), m, l
+
+    tfm.paged_chunk_attention = skewed
+    try:
+        control = dispatch("kernel", pin=plain[4])
+    finally:
+        tfm.paged_chunk_attention = exact
+    torch.cuda.synchronize()
+    base, margin_of, gap, lr_std = decode_readings(*plain[:3])
+
+    def readings(run):
+        return {"attn_rel": attn_rel(run[5], plain[5]), **base(*run[:3])}
+
+    sound, ctl = readings(kernel), readings(control)
+    pinned_margin = margin_of(kernel[1])
+    p_plain, top_plain = plain[3], plain[4][..., 0]
+
+    def own(run):
+        """A run with its own routing against the plain path: readings,
+        tokens that differ, and the (token, MoE layer) pairs whose top-1
+        expert differs, with the largest plain router margin among them."""
+        top = run[4][..., 0]
+        flips = top != top_plain
+        margin = (p_plain.gather(-1, top_plain[..., None].long())
+                  - p_plain.gather(-1, top[..., None].long()))[..., 0]
+        return {"vs_plain": readings(run),
+                "tokens_differ": margin_of(run[1])[0],
+                "expert_flips": int(flips.sum()),
+                "routed_pairs": flips.numel(),
+                "largest_router_margin_where_flipped":
+                    float(margin[flips].max()) if flips.any() else None}
+
+    res["chunk_forward"] = {
+        "B": MODEL_B, "c": MODEL_C, "ctx": SLOT_CTX_LEN,
+        "logits_std_plain": lr_std, "kernel_vs_plain": sound,
+        "control_vs_plain": ctl,
+        "routing": "pinned to the plain path's experts",
+        "pinned_tokens_differ": pinned_margin[0],
+        "pinned_gap_margin": pinned_margin[2],
+        "own_routing": own(free),
+        "plain_split_own_routing": {**own(reorder), "splits": splits}}
+    cf = res["chunk_forward"]
+    log(f"hybrid chunk_forward ({cfg.name}, B {MODEL_B}, c {MODEL_C}, every "
+        f"slot at ctx {SLOT_CTX_LEN}, the paged kernel on the slot view): "
+        f"logits std {lr_std:.4f}; pinned routing: tokens differ "
+        f"{pinned_margin[0]} (gap check margin {pinned_margin[2]})")
+    for what, o in (("kernel path", cf["own_routing"]),
+                    (f"noise floor, the plain split version ({splits} "
+                     f"splits)", cf["plain_split_own_routing"])):
+        log(f"  {what}, own routing: tokens differ {o['tokens_differ']}, "
+            f"top-1 expert differs in {o['expert_flips']} of "
+            f"{o['routed_pairs']} pairs (largest plain router margin "
+            f"{o['largest_router_margin_where_flipped']}), attn_rel "
+            f"{o['vs_plain']['attn_rel']:.4f}, logits_rel "
+            f"{o['vs_plain']['logits_rel']:.4f}")
+    for key in sound:
+        log(f"  {key} (pinned): kernel {sound[key]:.4f}  control (acc x "
+            f"{1 + CONTROL_SKEW}) {ctl[key]:.4f}  limit "
+            f"{HYBRID_LIMITS.get(key, 'none (a reading)')}")
+
+    def head_only(impl):
+        logits, _ = model.chunk_forward(params, cache, win, start, valid,
+                                        impl=impl)
+        return softmax_confidence_device(logits)[1].cpu()
+
+    undo = annotate_scans()
+    try:
+        cf["profile"] = profile_dispatch(
+            head_only, "paged_chunk_attn", 5, 3,
+            ops=("aten::_grouped_mm", "selective_scan"))
+    finally:
+        undo()
+    log_profile(f"hybrid chunk_forward ({cfg.name})", cf["profile"], "paged")
+    if cache["k"].data_ptr() != ptr:
+        raise AssertionError("hybrid: the slot cache moved")
+    check_limits("hybrid prefill", pre_sound, pre_ctl, HYBRID_LIMITS,
+                 HYBRID_BREAKS)
+    if pinned_margin[0] and not pinned_margin[2] > 0:
+        raise AssertionError("hybrid chunk_forward: with pinned routing a "
+                             "token differs where its top-1/top-2 logit gap "
+                             "exceeds the bf16 tolerance")
+    check_limits("hybrid chunk_forward", sound, ctl, HYBRID_LIMITS,
+                 HYBRID_BREAKS)
+    return res
+
+
+def slot_ptrs(cache) -> list[int]:
+    return [t.data_ptr() for st in cache.get("states", {}).values()
+            for t in st.values()] + \
+        [cache[n].data_ptr() for n in ("k", "v", "len") if n in cache]
+
+
+def serve_recurrent(model, params, reqs) -> dict:
+    """One serving run of a recurrent family through the recurrent-slot
+    ``ModelBackend`` (8 slots, max_len 640, bf16): rwkv AR under
+    ``FixedScheduler(1)``, the hybrid block-pinned under the elastic
+    scheduler as ``launch/serve.py`` builds it.  The backend counts no
+    dispatches in this mode, so the run counts the model's calls itself."""
+    import torch
+
+    from repro_torch.core.latency_model import CPU_HOST, AnalyticDeviceModel
+    from repro_torch.core.scheduler import ElasticScheduler, FixedScheduler
+    from repro_torch.kernels import block_diffusion_attn as bda
+    from repro_torch.kernels import chunked_paged_attn as cpa
+    from repro_torch.models import moe
+    from repro_torch.serving import DATASETS, ModelBackend, ServingEngine
+
+    cfg = model.cfg
+    ar = cfg.family == "ssm"
+    be = ModelBackend(model, params, n_slots=MODEL_B, max_len=SLOT_LEN,
+                      decode_mode="ar" if ar else "elastic",
+                      cache_dtype=torch.bfloat16, device=DEVICE)
+    sched = FixedScheduler(1) if ar else ElasticScheduler.from_analytic(
+        AnalyticDeviceModel(cfg, CPU_HOST),
+        prior_tokens_per_step=DATASETS["sharegpt"].tokens_per_step_bd32,
+        batches=(1, 2, 4, 8), ctx=128.0)
+    calls = {"prefill": 0, "chunk_forward": 0, "advance_states": 0}
+    bad = []
+
+    def counted(name):
+        fn = getattr(type(model), name).__get__(model)
+
+        def wrapped(*a, **k):
+            calls[name] += 1
+            logits, out = fn(*a, **k)
+            if not torch.isfinite(logits).all():
+                bad.append(name)
+            return logits, out
+        return wrapped
+
+    for name in calls:
+        setattr(model, name, counted(name))
+    outs = {}
+    release = be.release
+
+    def spy(rid):
+        outs[rid] = be.state(rid).output_tokens
+        release(rid)
+
+    be.release = spy
+    ptrs = slot_ptrs(be.cache)
+    eng = ServingEngine(be, sched, max_batch=MODEL_B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cpa.LAUNCHES = cpa.MERGE_LAUNCHES = bda.LAUNCHES = 0
+    moe.GROUPED_CALLS = 0
+    t0 = time.perf_counter()
+    try:
+        rep = eng.run(list(reqs))
+        torch.cuda.synchronize()
+    finally:
+        for name in calls:
+            delattr(model, name)
+    wall = time.perf_counter() - t0
+    launches, bd_launches = cpa.LAUNCHES, bda.LAUNCHES
+    merges, grouped = cpa.MERGE_LAUNCHES, moe.GROUPED_CALLS
+
+    n_attn = model.paged_kv_dims()[0] if model.has_kv else 0
+    n_moe = sum(ffn == "moe" for _, ffn in model._positions()) \
+        * model.n_periods if moe.takes_sorted_path(cfg) else 0
+    n_dec = calls["chunk_forward"] + calls["advance_states"]
+    tokens = sum(len(v) for v in outs.values())
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "mode":
+           "ar" if ar else "block_pinned", "requests": len(rep.metrics),
+           "tokens_committed": tokens, "prefill_calls": calls["prefill"],
+           "chunk_forward_calls": calls["chunk_forward"],
+           "advance_states_calls": calls["advance_states"],
+           "decode_dispatches": n_dec, "prefill_dispatches": calls["prefill"],
+           "kernel_launches": launches, "merge_launches": merges,
+           "bd_kernel_launches": bd_launches, "grouped_mm_calls": grouped,
+           "token_utilization": rep.token_utilization,
+           "wall_s": wall, "tok_per_s": tokens / wall,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log(f"serve {cfg.name} ({cfg.n_layers} layers) {res['mode']}: "
+        f"{res['requests']} requests finished, {tokens} tokens committed, "
+        f"{calls['prefill']} prefill + {calls['chunk_forward']} chunk_forward"
+        f" + {calls['advance_states']} advance_states dispatches, {launches}"
+        f" paged ({merges} with a split merge) + {bd_launches} "
+        f"block-diffusion kernel launches, {grouped} grouped products, "
+        f"token utilization {rep.token_utilization:.3f}, {wall:.3f} s wall, "
+        f"{res['tok_per_s']:.2f} committed tok/s, max_memory_allocated "
+        f"{res['max_memory_allocated']} B")
+
+    leaves = [t for st in be.cache.get("states", {}).values()
+              for t in st.values()]
+    checks = [
+        (len(rep.metrics) == len(reqs), "not every request finished"),
+        (all(len(outs[r.rid]) == r.max_new_tokens for r in reqs),
+         "a request committed the wrong number of tokens"),
+        (all(0 <= t < cfg.vocab_size for v in outs.values() for t in v),
+         "a committed token is outside the vocabulary"),
+        (not bad, f"non-finite logits from {sorted(set(bad))}"),
+        (calls["prefill"] == len(reqs), "prefill calls != admissions"),
+        (not ar or rep.token_utilization == 1.0,
+         f"AR token utilization {rep.token_utilization} != 1.0"),
+        (not ar or calls["chunk_forward"] == 0, "an AR run ran a window"),
+        (bd_launches == n_attn * calls["prefill"],
+         f"{bd_launches} block-diffusion launches != {n_attn} x "
+         f"{calls['prefill']} prefills"),
+        (launches == n_attn * n_dec,
+         f"{launches} paged launches != {n_attn} x {n_dec} chunk_forward + "
+         f"advance_states dispatches"),
+        (merges <= launches, f"{merges} merge launches > {launches}"),
+        (grouped == 3 * n_moe * (calls["prefill"] + n_dec),
+         f"{grouped} grouped products != 3 x {n_moe} MoE layers x "
+         f"{calls['prefill'] + n_dec} dispatches"),
+        (slot_ptrs(be.cache) == ptrs, "the slot cache moved"),
+        (not be.cache["len"].any() and not any(t.any() for t in leaves),
+         "a released slot's len or states are not zero"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise AssertionError(f"serve {cfg.name}: {msg}")
+    return res
+
+
 def make_requests(cfg, seed: int, n: int, prompt: tuple, new: tuple):
     import numpy as np
 
@@ -1567,6 +2148,28 @@ def main() -> int:
     for r in runs:
         del r["outputs"], r["gaps"]
 
+    # RWKV6-1.6B at full width and depth (the ssm family, AR)
+    cfg = get_config(SSM_ARCH)
+    model, params = draw(cfg)
+    ssm_res = ssm_phase(model, params, args.seed)
+    torch.cuda.empty_cache()
+    runs.append(serve_recurrent(model, params, elastic_reqs(cfg)))
+    del model, params
+    free(cfg.name)
+
+    # Jamba at full width, one period with 10 experts (the hybrid family)
+    cfg = get_config(HYBRID_ARCH).replace(**HYBRID_CUTS)
+    log(f"{cfg.name}: full width (d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}), cut to {cfg.n_layers} "
+        f"of 72 layers (one period) and {cfg.n_experts} of 16 experts: the "
+        f"card's 80 GB")
+    model, params = draw(cfg)
+    runs.append(serve_recurrent(model, params, elastic_reqs(cfg)))
+    torch.cuda.empty_cache()
+    hybrid_res = hybrid_phase(model, params, args.seed)
+    del model, params
+    free(cfg.name)
+
     head = kern_rows[0]
     kernels = [{
         "name": "paged_chunk_attention",
@@ -1604,7 +2207,8 @@ def main() -> int:
              "kernels": kernels, "moe_layer": moe_rows,
              "model": model_res, "profile": profile_res,
              "prefill_model": prefill_res, "moe_model": moe_model_res,
-             "serve": runs, "wave_vs_chunked": wave_vs_chunked}, indent=1))
+             "ssm": ssm_res, "hybrid": hybrid_res, "serve": runs,
+             "wave_vs_chunked": wave_vs_chunked}, indent=1))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

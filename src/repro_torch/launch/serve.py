@@ -7,7 +7,9 @@
 the chosen analytic device spec; ``--backend model`` serves a real
 (smoke-config) model end-to-end through the same engine on
 ``--torch-device`` (default ``cuda``; ``cpu`` runs the kernels' plain
-versions).
+versions).  Every family but encdec serves: the attention-only ones
+through the paged KV pool, ssm (``--arch rwkv6-1.6b``) and hybrid
+(``--arch jamba-1.5-large-398b``) through the recurrent-slot cache.
 """
 
 from __future__ import annotations
@@ -122,7 +124,8 @@ def main():
         params = model.init_params(
             torch.Generator(device=dev).manual_seed(args.seed), device=dev)
         # attention families serve through the paged KV pool automatically
-        # (prompt-pages-only admission + incremental growth)
+        # (prompt-pages-only admission + incremental growth); ssm and hybrid
+        # through the recurrent-slot cache, which ignores the pool's options
         backend = ModelBackend(model, params, n_slots=8, max_len=256,
                                decode_mode="ar" if args.mode == "ar"
                                else "elastic", obs=args.obs,

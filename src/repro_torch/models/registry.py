@@ -8,9 +8,9 @@ from repro_torch.models.transformer import TransformerLM
 
 def build_model(cfg: ArchConfig):
     """The port's model for ``cfg``: a :class:`TransformerLM` for the dense,
-    moe and vlm families; the families not ported yet (ssm, hybrid, encdec)
-    raise ``NotImplementedError``."""
-    if cfg.family not in TransformerLM.PAGED_FAMILIES:
+    moe, vlm, hybrid and ssm families; encdec, not ported yet, raises
+    ``NotImplementedError``."""
+    if cfg.family not in TransformerLM.FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet")
     return TransformerLM(cfg)

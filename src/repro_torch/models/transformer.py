@@ -1,7 +1,10 @@
-"""Decoder-only LM, the dense, moe and vlm families, on the paged KV pool.
+"""Decoder-only LM covering the dense / moe / vlm / hybrid / ssm families.
 
-The serving entry points of the JAX package's ``TransformerLM`` for the
-paged path, with the same arguments and results:
+One parameter layout (the JAX package's: ``blocks/pos{j}/…`` stacked along
+a leading period axis) and two serving caches, with the reference's
+arguments and results.
+
+The paged entry points, for the attention-only families (dense, moe, vlm):
 
 * ``prefill_chunk_paged`` — one resumable prefill chunk per row against the
   pages earlier chunks wrote; returns the last-position (conf, tok).
@@ -11,20 +14,35 @@ paged path, with the same arguments and results:
 * ``decode_step_paged`` — the fused decode iteration: window forward +
   freeze + on-device confidence/argmax; only ``2·B·c`` scalars come back.
 * ``prefill_paged`` — the wave prefill: one forward over a whole admission
-  wave's prompts (block-causal attention, the block-diffusion kernel once
-  per layer) that scatters their KV into the pool.
+  wave's prompts that scatters their KV into the pool.
 
-Every layer is attention then an FFN: the gated MLP, or the MoE block
-(:mod:`repro_torch.models.moe`) when the config has experts; vlm configs
-rotate q and k by M-RoPE and may replace token embeddings with
-precomputed multimodal ones (``mm_embeds`` where ``mm_mask``).  The
-recurrent families (ssm, hybrid) and encdec are not ported yet.
+The dense-slot entry points, which the recurrent families (hybrid, ssm)
+serve through (a fixed ``[L_attn, B, S, KVH, hd]`` slot cache plus the
+recurrent ``states``):
 
-The layer stack is a Python loop over the stacked ``[L, …]`` params.  The
-page pool ``{"k_pages", "v_pages"}`` ``[L,P,ps,KVH,hd]`` is updated **in
-place** (the torch form of the JAX package's donated pool): every write
-goes into a view of the same storage, so ``k_pages.data_ptr()`` never
-changes, and the returned cache is the same dict of the same tensors.
+* ``apply`` — full-sequence forward → logits.
+* ``prefill`` — full-sequence forward that writes the slot KV, ``len`` and
+  the recurrent states.
+* ``chunk_forward`` — diffusion window against the slot cache and states.
+* ``freeze`` — write leading window KV into the slot cache, advance ``len``.
+* ``advance_states`` — run committed tokens: slot KV and ``len`` advance,
+  the new recurrent states come back for the caller to merge.
+
+Self-attention over a whole position-aligned sequence (``apply``,
+``prefill``, ``prefill_paged``) is one block-diffusion call a layer (block
+1 is causal, a block of T or more bidirectional).  A window reads its
+prefix through the paged kernel: the page pool through block tables, or
+the slot cache as B pages of S tokens (``block_tables = arange(B)``,
+``ctx_lens = len``); the partial is combined exactly with the in-window
+``sdpa_partial``.  CPU tensors (or ``impl="ref"``) run the kernels' plain
+versions.  Hybrid (Jamba) layers run in periods of ``attn_period``
+heterogeneous positions (one attention, the rest Mamba; MoE every
+``moe_every``); ssm (RWKV6) has one time-mix and one channel-mix position.
+
+The layer stack is a Python loop over the stacked ``[n, …]`` params.  The
+caches are updated **in place** (the torch form of the JAX package's
+donated buffers): every write goes into a view of the same storage, so
+``data_ptr()`` of the page pool and of the slot cache never changes.
 Writes land after the forward, as in the reference.
 """
 
@@ -36,6 +54,7 @@ from repro_torch.kernels.ops import (block_diffusion_attention,
                                      paged_chunk_attention,
                                      softmax_confidence_device)
 from repro_torch.kernels.ref import block_diffusion_ref, paged_chunk_ref
+from repro_torch.models import ssm
 from repro_torch.models.common import ArchConfig, dense_init, embed_init
 from repro_torch.models.layers import (attn_output, block_causal_mask,
                                        causal_mask, combine_partials,
@@ -43,8 +62,6 @@ from repro_torch.models.layers import (attn_output, block_causal_mask,
                                        mlp_block, qkv_project, rms_norm,
                                        sdpa_partial)
 from repro_torch.models.moe import init_moe, moe_block
-
-_BLOCK = "blocks/pos0/"
 
 
 def _page_dest(block_tables, positions, keep, page_size: int, n_pages: int):
@@ -97,23 +114,69 @@ def write_pages(cache, dst, k_new, v_new):
     return cache
 
 
+
+
+def _scatter_slots(cache_kv, new, idx):
+    """Slot cache [L,B,S,KVH,hd] ← new [L,B,T,KVH,hd] at positions idx [B,T],
+    in place; positions ``>= S`` are dropped (the reference's one-hot
+    scatter writes nothing there)."""
+    L, B, S = cache_kv.shape[:3]
+    T = idx.shape[1]
+    keep = idx < S
+    rows = torch.arange(B, device=idx.device)[:, None].expand(B, T)
+    cache_kv[:, rows[keep], idx[keep]] = new.to(cache_kv.dtype)[:, keep]
+    return cache_kv
+
+
+def _layer(tree, l: int):
+    """Layer ``l``'s slice of a ``{name: [n, …]}`` state dict."""
+    return {k: v[l] for k, v in tree.items()}
+
+
 class TransformerLM:
-    """Decoder-only LM of the attention-only families (paged serving
-    path)."""
+    """Family-dispatching decoder-only LM."""
 
     PAGED_FAMILIES = ("dense", "moe", "vlm")
-    _FFN_INIT = {"mlp": init_mlp, "moe": init_moe}
+    FAMILIES = PAGED_FAMILIES + ("hybrid", "ssm")
+    _MIXER_INIT = {"attn": init_attention, "mamba": ssm.init_mamba,
+                   "rwkv_tm": ssm.init_rwkv_timemix}
+    _FFN_INIT = {"mlp": init_mlp, "moe": init_moe,
+                 "rwkv_cm": ssm.init_rwkv_chanmix}
 
     def __init__(self, cfg: ArchConfig):
-        if cfg.family not in self.PAGED_FAMILIES:
+        if cfg.family not in self.FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported to repro_torch yet")
         self.cfg = cfg
-        self.n_periods = cfg.n_layers
+        if cfg.family == "hybrid":
+            if not (cfg.attn_period > 0
+                    and cfg.n_layers % cfg.attn_period == 0):
+                raise ValueError(f"hybrid: {cfg.n_layers} layers are not "
+                                 f"whole periods of {cfg.attn_period}")
+            self.n_periods = cfg.n_layers // cfg.attn_period
+        else:
+            self.n_periods = cfg.n_layers
 
+    # ------------------------------------------------------------------
+    # Layer-position structure
+    # ------------------------------------------------------------------
     def _positions(self):
-        """(mixer, ffn) kinds of the one position in each layer."""
-        return [("attn", "moe" if self.cfg.n_experts > 0 else "mlp")]
+        """(mixer, ffn) kinds of each position inside one period."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            return [("attn" if cfg.is_attn_layer(j) else "mamba",
+                     "moe" if cfg.is_moe_layer(j) else "mlp")
+                    for j in range(cfg.attn_period)]
+        if cfg.family == "ssm":
+            return [("rwkv_tm", "rwkv_cm")]
+        return [("attn", "moe" if cfg.n_experts > 0 else "mlp")]
+
+    def attn_positions(self):
+        return [j for j, (m, _) in enumerate(self._positions()) if m == "attn"]
+
+    @property
+    def has_kv(self):
+        return bool(self.attn_positions())
 
     # ------------------------------------------------------------------
     # Init
@@ -129,11 +192,13 @@ class TransformerLM:
         n = self.n_periods
         params = {"embed": embed_init(generator, (cfg.vocab_size, cfg.d_model),
                                       cfg.pdt, device)}
-        (_, ffn), = self._positions()
-        for sub, fn in (("norm1", init_norm), ("mixer", init_attention),
-                        ("norm2", init_norm), ("ffn", self._FFN_INIT[ffn])):
-            for k, v in fn(generator, cfg, device, n).items():
-                params[f"{_BLOCK}{sub}/{k}"] = v
+        for j, (mixer, ffn) in enumerate(self._positions()):
+            for sub, fn in (("norm1", init_norm),
+                            ("mixer", self._MIXER_INIT[mixer]),
+                            ("norm2", init_norm),
+                            ("ffn", self._FFN_INIT[ffn])):
+                for k, v in fn(generator, cfg, device, n).items():
+                    params[f"blocks/pos{j}/{sub}/{k}"] = v
         params["final_norm/scale"] = init_norm(generator, cfg, device)["scale"]
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(
@@ -141,9 +206,10 @@ class TransformerLM:
         return params
 
     @staticmethod
-    def _sub(params, sub: str, l: int) -> dict:
-        """Layer ``l``'s slice of one sub-block: {"wq": …} for "mixer"."""
-        pre = f"{_BLOCK}{sub}/"
+    def _sub(params, j: int, sub: str, l: int) -> dict:
+        """Period ``l``'s slice of position ``j``'s sub-block: {"wq": …} for
+        "mixer"."""
+        pre = f"blocks/pos{j}/{sub}/"
         return {k[len(pre):]: v[l] for k, v in params.items()
                 if k.startswith(pre)}
 
@@ -169,32 +235,39 @@ class TransformerLM:
     # ------------------------------------------------------------------
     # Layer stack
     # ------------------------------------------------------------------
-    def _attn(self, p, x, positions, shared, page_k, page_v):
-        """Attention mixer, in one of two forms chosen by ``shared``:
+    def _attn(self, p, x, positions, shared, lx, l: int):
+        """Attention mixer of period ``l``, in one of two forms chosen by
+        ``shared``:
 
-        * ``"self_flash"`` (wave prefill): block-causal attention over the
-          whole position-aligned sequence, one block-diffusion call
-          (kernel, or its plain version under ``impl == "ref"``); no paged
-          prefix is read.
-        * otherwise: the paged-prefix partial (kernel, or the plain version
-          under ``paged_impl == "ref"``) combined exactly with the
-          in-window partial.
+        * ``"self_flash"``: attention over the whole position-aligned
+          sequence, one block-diffusion call; no cache is read.
+        * otherwise: the prefix partial — the slot cache (``lx["cache_k"]``,
+          keys ``< cache_len``) or the page pool (``lx["page_k"]``) through
+          the paged kernel — combined exactly with the in-window partial.
 
+        ``shared["impl"] == "ref"`` runs the kernels' plain versions.
         Returns (y, (k, v))."""
         cfg = self.cfg
+        ref = shared["impl"] == "ref"
         q, k, v = qkv_project(p, cfg, x, positions)
         sf = shared.get("self_flash")
         if sf is not None:
-            fn = block_diffusion_ref if sf["impl"] == "ref" \
-                else block_diffusion_attention
+            fn = block_diffusion_ref if ref else block_diffusion_attention
             out = fn(q, k, v, sf["lengths"], block_size=sf["block_size"])
             return attn_output(p, cfg, out), (k, v)
-        fn = paged_chunk_ref if shared["paged_impl"] == "ref" \
-            else paged_chunk_attention
-        paged = fn(q, page_k.to(cfg.cdt), page_v.to(cfg.cdt),
-                   shared["block_tables"], shared["ctx_lens"])
-        window = sdpa_partial(q, k, v, shared["self_mask"])
-        out = combine_partials([paged, window], x.dtype)
+        fn = paged_chunk_ref if ref else paged_chunk_attention
+        parts = []
+        if "cache_k" in lx:
+            # layer l's slot cache [B,S,KVH,hd] is B pages of S tokens
+            parts.append(fn(q, lx["cache_k"][l].to(cfg.cdt),
+                            lx["cache_v"][l].to(cfg.cdt),
+                            shared["slot_tables"], shared["cache_len"]))
+        if "page_k" in lx:
+            parts.append(fn(q, lx["page_k"][l].to(cfg.cdt),
+                            lx["page_v"][l].to(cfg.cdt),
+                            shared["block_tables"], shared["ctx_lens"]))
+        parts.append(sdpa_partial(q, k, v, shared["self_mask"]))
+        out = combine_partials(parts, x.dtype)
         return attn_output(p, cfg, out), (k, v)
 
     def _ffn_apply(self, kind, p, x):
@@ -204,27 +277,64 @@ class TransformerLM:
             return moe_block(p, self.cfg, x)
         raise ValueError(kind)
 
-    def _stack(self, params, x, positions, shared, cache):
-        """Run the layer stack; returns (x, {"k", "v"} [L,B,T,KVH,hd])."""
-        cfg = self.cfg
-        (_, ffn), = self._positions()
-        ks, vs = [], []
-        for l in range(self.n_periods):
-            h = rms_norm(x, params[f"{_BLOCK}norm1/scale"][l], cfg.norm_eps)
-            y, (k, v) = self._attn(self._sub(params, "mixer", l), h,
-                                   positions, shared, cache["k_pages"][l],
-                                   cache["v_pages"][l])
-            x = x + y
-            h = rms_norm(x, params[f"{_BLOCK}norm2/scale"][l], cfg.norm_eps)
-            x = x + self._ffn_apply(ffn, self._sub(params, "ffn", l), h)
-            ks.append(k)
-            vs.append(v)
-        return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    def _stack(self, params, x, positions, shared, per_layer):
+        """Run the layer stack.
 
-    def _window_masks(self, positions, valid, c):
+        ``per_layer``: ``{"pos{j}": {...}, "ffn{j}": {...}}`` with leaves of
+        leading dim ``n_periods`` — attention caches (``cache_k``/``page_k``
+        and their v) and recurrent states (``"state"``: {name: tensor}).
+        Returns (x, kvs, states): kvs ``{"pos{j}": (k, v)}`` stacked
+        [n_periods, B, T, KVH, hd], states ``{"pos{j}"|"ffn{j}": {name:
+        [n_periods, …]}}``."""
+        cfg = self.cfg
+        kinds = self._positions()
+        kv_out, st_out = {}, {}
+        for l in range(self.n_periods):
+            for j, (mixer, ffn) in enumerate(kinds):
+                lx = per_layer.get(f"pos{j}", {})
+                pre = f"blocks/pos{j}/"
+                h = rms_norm(x, params[f"{pre}norm1/scale"][l], cfg.norm_eps)
+                p = self._sub(params, j, "mixer", l)
+                if mixer == "attn":
+                    y, kv = self._attn(p, h, positions, shared, lx, l)
+                    kv_out.setdefault(f"pos{j}", []).append(kv)
+                else:
+                    seq = ssm.mamba_seq if mixer == "mamba" \
+                        else ssm.rwkv_timemix
+                    y, st = seq(p, cfg, h, _layer(lx["state"], l))
+                    st_out.setdefault(f"pos{j}", []).append(st)
+                x = x + y
+                h = rms_norm(x, params[f"{pre}norm2/scale"][l], cfg.norm_eps)
+                p = self._sub(params, j, "ffn", l)
+                if ffn == "rwkv_cm":
+                    y, st = ssm.rwkv_chanmix(
+                        p, cfg, h, _layer(per_layer[f"ffn{j}"]["state"], l))
+                    st_out.setdefault(f"ffn{j}", []).append(st)
+                else:
+                    y = self._ffn_apply(ffn, p, h)
+                x = x + y
+        kvs = {key: (torch.stack([k for k, _ in kv]),
+                     torch.stack([v for _, v in kv]))
+               for key, kv in kv_out.items()}
+        states = {key: {name: torch.stack([s[name] for s in sts])
+                        for name in sts[0]}
+                  for key, sts in st_out.items()}
+        return x, kvs, states
+
+    def _collect_kv(self, kvs):
+        """kvs from the stack → {"k", "v"} [L_attn, B, T, KVH, hd] (attention
+        positions in order), or None for a model without attention."""
+        ks = [kvs[f"pos{j}"][0] for j in self.attn_positions()]
+        vs = [kvs[f"pos{j}"][1] for j in self.attn_positions()]
+        if not ks:
+            return None
+        return {"k": torch.cat(ks), "v": torch.cat(vs)}
+
+    def _window_masks(self, positions, valid, c, cache=None):
         """In-window self mask [B,1,c,c]: block-causal (diffusion) or causal,
         restricted to valid slots, OR the identity so padded rows keep one
-        finite logit."""
+        finite logit.  With a slot ``cache`` that holds KV, also its
+        ``cache_len`` and the one-page-a-row tables of its slot view."""
         cfg = self.cfg
         if cfg.diffusion:
             sm = block_causal_mask(positions, positions, cfg.block_size)
@@ -232,13 +342,240 @@ class TransformerLM:
             sm = causal_mask(positions, positions)
         sm = sm & valid[:, None, :] & valid[:, :, None]
         sm = sm | torch.eye(c, dtype=torch.bool, device=positions.device)[None]
-        return {"self_mask": sm[:, None]}
+        shared = {"self_mask": sm[:, None]}
+        if cache is not None and self.has_kv and "k" in cache:
+            B = positions.shape[0]
+            shared["cache_len"] = cache["len"]
+            shared["slot_tables"] = torch.arange(
+                B, dtype=torch.int32, device=positions.device)[:, None]
+        return shared
+
+    @staticmethod
+    def _flash_block(mask_mode: str, block_size: int, T: int) -> int:
+        """The block-diffusion block size that gives ``mask_mode``: 1 is
+        causal, the model's block is block-causal, T is bidirectional."""
+        return {"causal": 1, "block_causal": block_size,
+                "bidirectional": max(T, 1)}[mask_mode]
 
     # ------------------------------------------------------------------
-    # Paged serving
+    # Recurrent-state helpers
+    # ------------------------------------------------------------------
+    def _fresh_states(self, kind, B, dtype, device):
+        """Zero states of every period for one recurrent position: mamba
+        ``conv`` and rwkv ``tm_prev``/``cm_prev`` at ``dtype``, ``ssm`` and
+        ``wkv`` fp32 (the rwkv state split across its two positions)."""
+        cfg = self.cfg
+        if kind == "mamba":
+            st = ssm.mamba_init_state(cfg, B, dtype, device)
+        elif kind == "rwkv_tm":
+            st = ssm.rwkv_init_state(cfg, B, dtype, device)
+            st = {"tm_prev": st["tm_prev"], "wkv": st["wkv"]}
+        elif kind == "rwkv_cm":
+            st = {"cm_prev": ssm.rwkv_init_state(cfg, B, dtype,
+                                                 device)["cm_prev"]}
+        else:
+            raise ValueError(kind)
+        n = self.n_periods
+        return {k: v[None].repeat((n,) + (1,) * v.dim())
+                for k, v in st.items()}
+
+    def _state_xs(self, B, dtype, cache=None, device="cpu"):
+        """Per-position recurrent-state inputs: fresh, or the cache's."""
+        out = {}
+        for j, (mixer, ffn) in enumerate(self._positions()):
+            if mixer in ("mamba", "rwkv_tm"):
+                out[f"pos{j}"] = {"state": cache["states"][f"pos{j}"] if cache
+                                  else self._fresh_states(mixer, B, dtype,
+                                                          device)}
+            if ffn == "rwkv_cm":
+                out[f"ffn{j}"] = {"state": cache["states"][f"ffn{j}"] if cache
+                                  else self._fresh_states("rwkv_cm", B, dtype,
+                                                          device)}
+        return out
+
+    def _cache_xs(self, cache):
+        """Per-position slot-cache inputs of the attention positions."""
+        if not (self.has_kv and "k" in cache):
+            return {}
+        return {f"pos{j}": {"cache_k": cache["k"], "cache_v": cache["v"]}
+                for j in self.attn_positions()}
+
+    def _recurrent_xs(self, cache, B):
+        return {**self._cache_xs(cache),
+                **self._state_xs(B, self.cfg.cdt, cache=cache
+                                 if "states" in cache else None)}
+
+    # ------------------------------------------------------------------
+    # Dense-slot entry points
+    # ------------------------------------------------------------------
+    def apply(self, params, tokens, positions=None, mask_mode="causal",
+              lengths=None, mm_embeds=None, mm_mask=None, *,
+              impl: str = "kernel"):
+        """Full forward → logits [B,T,V] fp32.  ``mask_mode``: causal,
+        block_causal or bidirectional, over keys ``< lengths``."""
+        B, T = tokens.shape
+        dev = tokens.device
+        if positions is None:
+            positions = torch.arange(T, dtype=torch.int64,
+                                     device=dev)[None].expand(B, T)
+        if positions.dim() != 2:
+            raise NotImplementedError(
+                "apply with [B, 3, T] M-RoPE positions takes the reference's "
+                "non-aligned flash path, which only vlm training runs: it "
+                "belongs to the training slice, not ported yet")
+        if lengths is None:
+            lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
+        shared = {"impl": impl, "self_flash": {
+            "lengths": lengths.to(device=dev, dtype=torch.int32),
+            "block_size": self._flash_block(mask_mode, self.cfg.block_size,
+                                            T)}}
+        x = self.embed(params, tokens, mm_embeds, mm_mask)
+        per_layer = self._state_xs(B, x.dtype, device=dev)
+        x, _, _ = self._stack(params, x, positions, shared, per_layer)
+        return self.head(params, x)
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device="cuda"):
+        """Slot cache: ``len`` [batch] int32, ``k``/``v`` [L_attn, batch,
+        max_len, KVH, hd] when the model has attention, and ``states``
+        (``{"pos{j}"|"ffn{j}": {name: [n_periods, batch, …]}}``) when it has
+        recurrent layers."""
+        cfg = self.cfg
+        cache = {"len": torch.zeros((batch,), dtype=torch.int32,
+                                    device=device)}
+        if self.has_kv:
+            shp = (self.n_periods * len(self.attn_positions()), batch,
+                   max_len, cfg.n_kv_heads, cfg.hd)
+            cache["k"] = torch.zeros(shp, dtype=dtype, device=device)
+            cache["v"] = torch.zeros(shp, dtype=dtype, device=device)
+        states = self._state_xs(batch, dtype, device=device)
+        if states:
+            cache["states"] = {k: v["state"] for k, v in states.items()}
+        return cache
+
+    def prefill(self, params, tokens, lengths, cache, positions=None,
+                mask_mode=None, mm_embeds=None, mm_mask=None,
+                head_mode="all", *, impl: str = "kernel"):
+        """Forward the prompt from fresh states.  Returns (logits, cache).
+
+        Writes, in place: the slot KV (positions ``< lengths``, the rest of
+        each row zeroed), ``len = lengths``, and — when ``cache`` holds
+        ``states`` — the new recurrent states (a caller may pass views of
+        one slot's rows).  The returned cache is ``cache`` with ``states``
+        set to the new states.  head_mode: "all" → logits for every
+        position; "last" → the last valid position's; "none" → no logits.
+        """
+        cfg = self.cfg
+        B, T = tokens.shape
+        dev = tokens.device
+        if positions is None:
+            positions = torch.arange(T, dtype=torch.int64,
+                                     device=dev)[None].expand(B, T)
+        if mask_mode is None:
+            mask_mode = "block_causal" if cfg.diffusion else "causal"
+        lengths = lengths.to(device=dev, dtype=torch.int32)
+        shared = {"impl": impl, "self_flash": {
+            "lengths": lengths,
+            "block_size": self._flash_block(mask_mode, cfg.block_size, T)}}
+        x = self.embed(params, tokens, mm_embeds, mm_mask)
+        per_layer = self._state_xs(B, x.dtype, device=dev)
+        x, kvs, states = self._stack(params, x, positions, shared, per_layer)
+        if head_mode == "last":
+            idx = torch.clamp(lengths.long() - 1, 0, T - 1)
+            logits = self.head(params, x[torch.arange(B, device=dev), idx][
+                :, None])
+        elif head_mode == "none":
+            logits = None
+        else:
+            logits = self.head(params, x)
+
+        kv = self._collect_kv(kvs)
+        if kv is not None and "k" in cache:
+            keep = torch.arange(T, device=dev)[None, :] < lengths[:, None]
+            for name in ("k", "v"):
+                cache[name][:, :, :T] = torch.where(
+                    keep[None, :, :, None, None], kv[name], 0)
+                cache[name][:, :, T:] = 0
+        if states and "states" in cache:
+            for key, st in states.items():
+                for name, t in st.items():
+                    cache["states"][key][name].copy_(t)
+        cache["len"].copy_(lengths)
+        new_cache = dict(cache)
+        if states:
+            new_cache["states"] = states
+        return logits, new_cache
+
+    def chunk_forward(self, params, cache, win_tokens, win_start, win_valid,
+                      mm_embeds=None, mm_mask=None, *, impl: str = "kernel"):
+        """Diffusion-window forward against the slot cache and states.
+
+        win_tokens [B,c] (mask token at uncommitted positions), win_start
+        [B] (the window's first position), win_valid [B] (valid window
+        slots).  Returns (logits [B,c,V] fp32, win_kv {"k": [L_attn,B,c,KVH,
+        hd], "v"} or None); the cache is only read.
+        """
+        B, c = win_tokens.shape
+        offs = torch.arange(c, dtype=torch.int64, device=win_tokens.device)
+        positions = win_start.long()[:, None] + offs[None, :]
+        valid = offs[None, :] < win_valid[:, None]
+        shared = self._window_masks(positions, valid, c, cache)
+        shared["impl"] = impl
+        x = self.embed(params, win_tokens, mm_embeds, mm_mask)
+        x, kvs, _ = self._stack(params, x, positions, shared,
+                                self._recurrent_xs(cache, B))
+        return self.head(params, x), self._collect_kv(kvs)
+
+    def freeze(self, cache, win_kv, win_start, n_adv):
+        """Write the first n_adv[b] window KV entries into the slot cache
+        and advance ``len``, in place.  Returns the cache."""
+        if win_kv is not None and "k" in cache:
+            c = win_kv["k"].shape[2]
+            offs = torch.arange(c, dtype=torch.int64, device=win_start.device)
+            keep = offs[None, :] < n_adv[:, None]
+            idx = torch.where(keep, win_start.long()[:, None] + offs[None, :],
+                              cache["k"].shape[2])
+            _scatter_slots(cache["k"], win_kv["k"], idx)
+            _scatter_slots(cache["v"], win_kv["v"], idx)
+        cache["len"] += n_adv.to(torch.int32)
+        return cache
+
+    def advance_states(self, params, cache, tokens, lengths, mm_embeds=None,
+                       mm_mask=None, *, impl: str = "kernel"):
+        """Run committed ``tokens`` [B,T] from position ``cache['len']``:
+        rwkv's AR step, or a hybrid block commit (which also rewrites the
+        block's attention KV).  Writes, in place, the slot KV of the first
+        ``lengths[b]`` tokens and ``len += lengths``.  Returns (logits
+        [B,T,V] fp32, new cache): ``cache`` with ``states`` replaced by the
+        advanced states of every row (the cache's own states are left as
+        they were, for the caller to merge under its slot mask)."""
+        B, T = tokens.shape
+        offs = torch.arange(T, dtype=torch.int64, device=tokens.device)
+        positions = cache["len"].long()[:, None] + offs[None, :]
+        valid = offs[None, :] < lengths[:, None]
+        shared = self._window_masks(positions, valid, T, cache)
+        shared["impl"] = impl
+        x = self.embed(params, tokens, mm_embeds, mm_mask)
+        x, kvs, states = self._stack(params, x, positions, shared,
+                                     self._recurrent_xs(cache, B))
+        logits = self.head(params, x)
+
+        kv = self._collect_kv(kvs)
+        if kv is not None and "k" in cache:
+            idx = torch.where(valid, positions, cache["k"].shape[2])
+            _scatter_slots(cache["k"], kv["k"], idx)
+            _scatter_slots(cache["v"], kv["v"], idx)
+        cache["len"] += lengths.to(torch.int32)
+        new_cache = dict(cache)
+        if states:
+            new_cache["states"] = states
+        return logits, new_cache
+
+    # ------------------------------------------------------------------
+    # Paged serving (attention-only families)
     # ------------------------------------------------------------------
     def supports_paged(self) -> bool:
-        return self.cfg.family in self.PAGED_FAMILIES
+        return self.cfg.family in self.PAGED_FAMILIES and self.has_kv
 
     def _check_paged(self):
         if not self.supports_paged():
@@ -249,7 +586,8 @@ class TransformerLM:
     def paged_kv_dims(self) -> tuple[int, int, int]:
         """(n_kv_layers, n_kv_heads, head_dim) — the model-derived half of
         the page-pool shape."""
-        return (self.n_periods, self.cfg.n_kv_heads, self.cfg.hd)
+        return (self.n_periods * len(self.attn_positions()),
+                self.cfg.n_kv_heads, self.cfg.hd)
 
     def init_paged_cache(self, n_pages: int, page_size: int | None = None,
                          dtype=torch.float32, device="cuda"):
@@ -261,11 +599,22 @@ class TransformerLM:
         return {"k_pages": torch.zeros(shp, dtype=dtype, device=device),
                 "v_pages": torch.zeros(shp, dtype=dtype, device=device)}
 
+    def _page_xs(self, cache):
+        return {f"pos{j}": {"page_k": cache["k_pages"],
+                            "page_v": cache["v_pages"]}
+                for j in self.attn_positions()}
+
+    def _paged_stack(self, params, x, positions, shared, cache):
+        """The layer stack over the page pool → (x, {"k", "v"})."""
+        x, kvs, _ = self._stack(params, x, positions, shared,
+                                self._page_xs(cache))
+        return x, self._collect_kv(kvs)
+
     def _paged_shared(self, positions, validm, c, block_tables, ctx_lens,
                       impl):
         shared = self._window_masks(positions, validm, c)
         shared.update(block_tables=block_tables.to(torch.int32),
-                      ctx_lens=ctx_lens.to(torch.int32), paged_impl=impl)
+                      ctx_lens=ctx_lens.to(torch.int32), impl=impl)
         return shared
 
     def prefill_paged(self, params, cache, tokens, lengths, block_tables,
@@ -295,11 +644,11 @@ class TransformerLM:
         positions = torch.arange(T, dtype=torch.int64,
                                  device=dev)[None].expand(B, T)
         lengths = lengths.to(device=dev, dtype=torch.int32)
-        shared = {"self_flash": {
-            "lengths": lengths, "impl": impl,
+        shared = {"impl": impl, "self_flash": {
+            "lengths": lengths,
             "block_size": cfg.block_size if cfg.diffusion else 1}}
         x = self.embed(params, tokens, mm_embeds, mm_mask)
-        x, kv = self._stack(params, x, positions, shared, cache)
+        x, kv = self._paged_stack(params, x, positions, shared, cache)
         idx = torch.clamp(lengths.long() - 1, 0, T - 1)
         xl = x[torch.arange(B, device=dev), idx][:, None]
         logits = self.head(params, xl)[:, 0]
@@ -333,7 +682,7 @@ class TransformerLM:
         shared = self._paged_shared(positions, validm, T, block_tables,
                                     offsets, impl)
         x = self.embed(params, tokens, mm_embeds, mm_mask)
-        x, kv = self._stack(params, x, positions, shared, cache)
+        x, kv = self._paged_stack(params, x, positions, shared, cache)
         idx = torch.clamp(valid.long() - 1, 0, T - 1)
         xl = x[torch.arange(B, device=dev), idx][:, None]
         logits = self.head(params, xl)[:, 0]
@@ -360,7 +709,7 @@ class TransformerLM:
         shared = self._paged_shared(positions, valid, c, block_tables,
                                     ctx_lens, impl)
         x = self.embed(params, win_tokens, mm_embeds, mm_mask)
-        x, kv = self._stack(params, x, positions, shared, cache)
+        x, kv = self._paged_stack(params, x, positions, shared, cache)
         return self.head(params, x), kv
 
     def freeze_paged(self, cache, win_kv, block_tables, win_start, n_adv):

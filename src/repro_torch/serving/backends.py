@@ -8,7 +8,9 @@
   end-to-end on its device (CUDA by default); commits come from actual
   softmax confidences.  The attention-only families (dense, moe, vlm)
   serve through the unified paged KV pool and the hand-written CUDA
-  chunked-paged-attention kernel (its plain version on CPU tensors).
+  chunked-paged-attention kernel (its plain version on CPU tensors); the
+  recurrent families (ssm, hybrid) keep a fixed-slot cache, because their
+  recurrent states cannot be paged.
 
 Both expose the same protocol:
     can_admit(request)        -> bool
@@ -35,6 +37,7 @@ import torch
 
 from repro_torch.core.chunked import (ChunkedDecodeState, batch_apply_step,
                                 batch_windows, freeze_run)
+from repro_torch.core.diffusion import softmax_confidence
 from repro_torch.core.latency_model import (CPU_HOST, TPU_V5E,
                                             AnalyticDeviceModel, DeviceSpec,
                                             kv_bytes_per_token, swap_cost_s)
@@ -818,9 +821,10 @@ class SimBackend:
 # ===========================================================================
 
 class ModelBackend:
-    """Real-model backend (attention-only families, paged KV pool).
+    """Real-model backend.
 
-    Committed KV lives in a :class:`PagedKVAllocator`-owned page pool on the
+    For the attention-only families (``model.supports_paged()``), committed
+    KV lives in a :class:`PagedKVAllocator`-owned page pool on the
     model's device, read through block tables by the chunked-paged-attention
     kernel (its plain version for ``attn_impl="ref"`` or CPU tensors).
     Admission claims **prompt pages only**; each decode step reserves its
@@ -845,8 +849,22 @@ class ModelBackend:
     (the torch form of the JAX package's donation contract):
     ``kv.k_pages.data_ptr()`` is fixed for the backend's life.
 
-    Not ported yet (raise ``NotImplementedError``): ``kv_shards > 1`` and
-    the recurrent-slot families.
+    **Recurrent-slot mode** (ssm, hybrid): recurrent states cannot be
+    paged, so these families keep a fixed ``n_slots``-row cache
+    (``TransformerLM.init_cache``), updated in place for the backend's life.
+    Admission prefills one request into a free slot, its prompt padded with
+    zeros to ``max_len`` as the reference does (so the slot's states have
+    also run over the padding); rwkv decodes AR with ``advance_states`` at
+    T = 1, the hybrid block-pinned with one ``chunk_forward`` at ``c =
+    block_size`` a tick and one ``advance_states`` a block commit.  Every
+    dispatch runs all ``n_slots`` rows; a masked merge keeps the states of
+    the rows that did not take part.  The dispatches pull ``[n_slots, c,
+    V]`` fp32 logits to the host, which samples them; like the reference,
+    this mode counts no dispatches and no host bytes.  The pool's options
+    (pages, prefill mode and budget, prefix cache, host tier) are accepted
+    and unused.
+
+    Not ported yet (raises ``NotImplementedError``): ``kv_shards > 1``.
     """
 
     def __init__(self, model, params, n_slots: int = 8, max_len: int = 512,
@@ -862,9 +880,6 @@ class ModelBackend:
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
         if kv_shards != 1:
             raise NotImplementedError("kv_shards > 1 is not ported yet")
-        if not model.supports_paged():
-            raise NotImplementedError(
-                "the recurrent-slot backend mode is not ported yet")
         self.device = torch.empty(0, device=device).device   # cuda → cuda:N
         for name, t in params.items():
             if t.device != self.device:
@@ -877,8 +892,8 @@ class ModelBackend:
         self.max_len = max_len
         self.decode_mode = decode_mode
         self.obs = obs
-        self.paged = True
-        self.grows_kv = True
+        self.paged = model.supports_paged()
+        self.grows_kv = self.paged
         self.prefill_mode = prefill_mode
         self._states: dict[int, object] = {}
         self._req: dict[int, Request] = {}
@@ -891,6 +906,16 @@ class ModelBackend:
         self.kv_shards = kv_shards
         self.prefill_tokens_history: list[int] = []  # prompt tokens per tick
         self.last_prefill_plan: list[tuple[int, int, int]] = []
+        self._impl = attn_impl if attn_impl is not None \
+            else self.cfg.paged_attn_impl
+        if not self.paged:
+            self.kv = None
+            self.prefix_cache = False
+            self.cache = model.init_cache(n_slots, max_len, dtype=cache_dtype,
+                                          device=self.device)
+            self._slot_of: dict[int, int] = {}
+            self._free_slots = list(range(n_slots - 1, -1, -1))
+            return
 
         ps = page_size if page_size is not None else self.cfg.kv_page_size
         if kv_pages is None:
@@ -919,8 +944,6 @@ class ModelBackend:
         self.prefix_hits = 0
         self.prefix_misses = 0
         self.prefix_hit_tokens = 0
-        self._impl = attn_impl if attn_impl is not None \
-            else self.cfg.paged_attn_impl
 
     @staticmethod
     def _bucket(n: int) -> int:
@@ -957,6 +980,8 @@ class ModelBackend:
     def admit_pages(self, req: Request) -> int:
         """Pages claimed at admission (prompt-only incremental growth,
         net of prefix hits — attached device pages cost nothing)."""
+        if not self.paged:
+            return 0
         if self.kv.is_spilled(req.rid):
             return self.kv.spilled_pages(req.rid)
         m = self._prefix_lookup(req)
@@ -968,6 +993,8 @@ class ModelBackend:
         total = req.prompt_len + req.max_new_tokens
         if total > self.max_len:
             return False
+        if not self.paged:
+            return bool(self._free_slots)
         # prompt pages free now; full footprint must fit the pool ever
         if self.kv.pages_for(total) > self.kv.n_pages:
             return False
@@ -991,6 +1018,10 @@ class ModelBackend:
 
     def admit(self, req: Request) -> float:
         self._req[req.rid] = req
+        if not self.paged:
+            self._states[req.rid] = self._make_state(req)
+            self._admit_slot(req)
+            return 0.0
         if self.kv.is_spilled(req.rid):
             # spill-resume: the decode state was retained at spill time;
             # one batched host→device copy restores the exact KV
@@ -1020,6 +1051,11 @@ class ModelBackend:
         return 0.0
 
     def release(self, rid: int):
+        if not self.paged:
+            self._release_slot(rid)
+            self._states.pop(rid)
+            self._req.pop(rid)
+            return
         # a mid-prefill victim's cursor is discarded with its pages
         self._prefill.remove(rid)
         if self.kv.is_spilled(rid):
@@ -1033,7 +1069,8 @@ class ModelBackend:
         """Preempt→spill to the host tier (see :meth:`SimBackend.spill`):
         decode state is retained and re-admission swaps the exact KV bytes
         back.  False → caller uses the discard path."""
-        if self.kv.host is None or self._prefill.pending(rid) \
+        if not self.paged or self.kv.host is None \
+                or self._prefill.pending(rid) \
                 or self.kv.is_spilled(rid):
             return False
         st = self._states.get(rid)
@@ -1053,7 +1090,7 @@ class ModelBackend:
     def migrate_out(self, rid: int) -> dict | None:
         """Detach a host-spilled request into a portable ticket (KV bytes
         + decode state); see :meth:`SimBackend.migrate_out`."""
-        if not self.kv.is_spilled(rid):
+        if not self.paged or not self.kv.is_spilled(rid):
             return None
         payload = self.kv.export_spilled(rid)
         if payload is None:
@@ -1065,7 +1102,8 @@ class ModelBackend:
         """Adopt a migrated request's spill payload + decode state; the
         spill-resume ``admit`` path then swaps the exact KV bytes onto
         this replica's pool."""
-        if not self.kv.adopt_spilled(req.rid, ticket["payload"]):
+        if not self.paged or not self.kv.adopt_spilled(req.rid,
+                                                       ticket["payload"]):
             return False
         self._states[req.rid] = ticket["state"]
         self._req[req.rid] = req
@@ -1074,9 +1112,13 @@ class ModelBackend:
     def crash_reset(self):
         """Simulated replica death: decode states, prefill cursors, and
         all KV contents are dropped; the allocator comes back empty."""
-        self._prefill.queue = []
-        self._prefill.cursor = {}
-        self.kv.crash_wipe()
+        if self.paged:
+            self._prefill.queue = []
+            self._prefill.cursor = {}
+            self.kv.crash_wipe()
+        else:
+            for rid in list(self._slot_of):
+                self._release_slot(rid)
         self._states.clear()
         self._req.clear()
 
@@ -1084,7 +1126,7 @@ class ModelBackend:
         return self._states[rid]
 
     def step_page_deficit(self, rids, chunk: int) -> int:
-        if not rids:
+        if not self.paged or not rids:
             return 0
         # mid-prefill requests don't decode this tick
         rids = [r for r in rids if not self._prefill.pending(r)]
@@ -1095,6 +1137,8 @@ class ModelBackend:
     def prefill_tick_tokens(self) -> int:
         """Prompt tokens the next tick's prefill phase will process — the
         saturation signal the elastic scheduler folds into chunk choice."""
+        if not self.paged:
+            return 0
         backlog = self._prefill.backlog
         if self.prefill_mode == "wave":
             return backlog
@@ -1104,7 +1148,7 @@ class ModelBackend:
         """Requests the next decode dispatch will actually include —
         mid-prefill rids sit the dispatch out in chunked mode, but join it
         in wave mode (the wave flush completes before the dispatch)."""
-        if self.prefill_mode == "wave":
+        if not self.paged or self.prefill_mode == "wave":
             return len(rids)
         return sum(1 for r in rids if not self._prefill.pending(r))
 
@@ -1221,6 +1265,10 @@ class ModelBackend:
 
     def telemetry_counters(self) -> dict:
         """Cumulative counters the tracer samples once per tick."""
+        if not self.paged:
+            return {"decode_dispatches": self.decode_dispatches,
+                    "prefill_dispatches": self.prefill_dispatches,
+                    "host_transfer_bytes": self.host_transfer_bytes}
         ks = self.kv.stats
         return {"decode_dispatches": self.decode_dispatches,
                 "prefill_dispatches": self.prefill_dispatches,
@@ -1320,6 +1368,8 @@ class ModelBackend:
         return ar_rids, diff_rids
 
     def decode_step(self, rids, chunk: int):
+        if not self.paged:
+            return 0.0, self._step_slots(rids)
         infos: dict[int, StepInfo] = {}
         live_b = sum(1 for r in rids if not self._prefill.pending(r))
         fresh = self._prefill_tick(live_b * chunk)
@@ -1364,3 +1414,134 @@ class ModelBackend:
                 infos[r] = StepInfo(fi.n_committed + 1, fi.commit_mask,
                                     fi.valid_len, fi.done)
         return 0.0, infos
+
+    # -- recurrent-slot mode -------------------------------------------------
+    def _admit_slot(self, req: Request):
+        """Prefill one request into a free slot, its prompt padded with
+        zeros to ``max_len`` (the reference's admission, padding and all).
+        The slot's KV, ``len`` and states are written through views of the
+        slot cache; an AR request commits its first token from the last
+        prompt position's logits, sampled on the host."""
+        slot = self._free_slots.pop()
+        self._slot_of[req.rid] = slot
+        toks = np.zeros(self.max_len, np.int64)
+        pt = np.asarray(req.prompt_tokens, np.int64)
+        toks[:len(pt)] = pt
+        sl = slice(slot, slot + 1)
+        sub = {"len": self.cache["len"][sl]}
+        for name in ("k", "v"):
+            if name in self.cache:
+                sub[name] = self.cache[name][:, sl]
+        if "states" in self.cache:
+            sub["states"] = {key: {name: t[:, sl] for name, t in st.items()}
+                             for key, st in self.cache["states"].items()}
+        logits, _ = self.model.prefill(
+            self.params, self._t(toks)[None],
+            self._t([req.prompt_len], torch.int32), sub, head_mode="last",
+            impl=self._impl)
+        st = self._states[req.rid]
+        if isinstance(st, ARState):
+            _, tok = softmax_confidence(logits[0, 0].cpu().numpy())
+            st.commit(int(tok))
+
+    def _release_slot(self, rid: int):
+        """Free a slot: zero its ``len`` and its recurrent states (the fresh
+        states are zeros), so no later dispatch sees the last occupant's.
+        Its KV rows are overwritten by the next prefill."""
+        slot = self._slot_of.pop(rid)
+        self.cache["len"][slot] = 0
+        for st in self.cache.get("states", {}).values():
+            for t in st.values():
+                t[:, slot] = 0
+        self._free_slots.append(slot)
+
+    def _advance(self, toks, lens, mask):
+        """One ``advance_states`` dispatch over every slot; the new states
+        land only in the rows of ``mask`` (in place).  Returns the logits
+        [n_slots, T, V] fp32 on the host."""
+        logits, new = self.model.advance_states(
+            self.params, self.cache, self._t(toks), self._t(lens, torch.int32),
+            impl=self._impl)
+        m = self._t(mask, torch.bool)
+        for key, st in self.cache.get("states", {}).items():
+            for name, old in st.items():
+                keep = m.view((1, -1) + (1,) * (old.dim() - 2))
+                old.copy_(torch.where(keep, new["states"][key][name], old))
+        return logits.cpu().numpy()
+
+    def _step_ar_recurrent(self, ar_rids, infos):
+        """AR decode for the recurrent-slot families: the last committed
+        token of every live slot through ``advance_states`` (T = 1)."""
+        B = self.n_slots
+        toks = np.full((B, 1), self.cfg.mask_token_id, np.int64)
+        lens = np.zeros(B, np.int64)
+        mask = np.zeros(B, bool)
+        for rid in ar_rids:
+            st = self._states[rid]
+            slot = self._slot_of[rid]
+            toks[slot, 0] = st.committed[st.frozen - 1] if st.frozen else \
+                self._req[rid].prompt_tokens[-1]
+            lens[slot] = 1
+            mask[slot] = True
+        logits = self._advance(toks, lens, mask)
+        for rid in ar_rids:
+            st = self._states[rid]
+            _, tok = softmax_confidence(logits[self._slot_of[rid], 0])
+            st.commit(int(tok))
+            infos[rid] = StepInfo(1, np.ones(1, bool), 1, st.done)
+
+    def _step_slots(self, rids):
+        """One tick of the recurrent-slot families: AR steps (ssm), then the
+        hybrid's block-pinned diffusion — one ``chunk_forward`` at ``c =
+        block_size`` over every slot, and one ``advance_states`` for each
+        request whose step completed a run of committed tokens."""
+        infos: dict[int, StepInfo] = {}
+        ar_rids, diff_rids = self._split_ar(rids, infos)
+        if ar_rids:
+            self._step_ar_recurrent(ar_rids, infos)
+        if not diff_rids:
+            return infos
+
+        B = self.n_slots
+        c = self.cfg.block_size          # hybrid windows pin to the block
+        win = np.full((B, c), self.cfg.mask_token_id, np.int64)
+        start = np.zeros(B, np.int64)
+        valid = np.zeros(B, np.int64)
+        meta = {}
+        for rid in diff_rids:
+            st = self._states[rid]
+            slot = self._slot_of[rid]
+            toks, s, v, cai = st.window(c)
+            win[slot, :len(toks)] = toks
+            start[slot] = s
+            valid[slot] = v
+            meta[rid] = (cai, v)
+        logits, _ = self.model.chunk_forward(
+            self.params, self.cache, self._t(win), self._t(start),
+            self._t(valid), impl=self._impl)
+        logits = logits.cpu().numpy()
+
+        block_commits = []
+        for rid in diff_rids:
+            st = self._states[rid]
+            slot = self._slot_of[rid]
+            cai, v = meta[rid]
+            conf, tok = softmax_confidence(logits[slot, :c])
+            commit_mask, n_adv = st.apply_step(conf, tok, v, cai)
+            if n_adv > 0:
+                block_commits.append((rid, slot, n_adv))
+            infos[rid] = StepInfo(int(commit_mask.sum()), commit_mask, v,
+                                  st.done)
+
+        for rid, slot, n_adv in block_commits:
+            st = self._states[rid]
+            rel0 = st.frozen
+            toks = np.full((B, n_adv), self.cfg.mask_token_id, np.int64)
+            lens = np.zeros(B, np.int64)
+            mask = np.zeros(B, bool)
+            toks[slot] = st.committed[rel0:rel0 + n_adv]
+            lens[slot] = n_adv
+            mask[slot] = True
+            self._advance(toks, lens, mask)
+            st.advance(n_adv)
+        return infos

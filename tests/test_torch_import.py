@@ -75,3 +75,25 @@ def test_serves_on_cpu_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "requests: 3" in out.stdout
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b"])
+def test_serves_recurrent_families_on_cpu_without_jax(arch):
+    """The serving CLI serves the ssm and hybrid SMOKE configs (the
+    recurrent-slot backend mode) with jax and the JAX package blocked."""
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "sys.argv = ['serve', '--backend', 'model', '--torch-device',\n"
+            f"            'cpu', '--arch', {arch!r}, '--requests', '2',\n"
+            "            '--rate', '8']\n"
+            "runpy.run_module('repro_torch.launch.serve',\n"
+            "                 run_name='__main__')\n")
+    # one thread: the SMOKE model's ops are tiny, and the test workers
+    # already load every core
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "requests: 2" in out.stdout

@@ -7,8 +7,10 @@ Each kernel runs under every forced variant of its dtype: the body the
 wrapper picks, the CUDA-core body, and (paged, bf16) the tensor-core body
 with one split and with eight.  The moe and vlm families' shapes (Llama-4
 Scout, Qwen2-VL-2B, Kimi K2: GQA groups 5 and 6, head dim 112; chip_smoke.py
-shapes (i)-(n)) run in bf16 under both bodies, the paged ones at the picked
-split count and at one split.
+shapes (i)-(n)) and the hybrid's (Jamba: the slot view, one page of 640
+tokens a request, and the padded [1, 640] prefill; shapes (o) and (p)) run
+in bf16 under both bodies, the paged ones at the picked split count and at
+one split.
 
 Tolerances as tests/test_kernels.py: fp32 2e-5 / bf16 3e-2 relative on acc,
 m within rtol 1e-5 / atol 1e-4; the block-diffusion output within 2e-5 /
@@ -61,11 +63,15 @@ def cuda():
 
 
 RAGGED_CTX = [0, 1, 15, 16, 17, 2048, 700, 1333]
+SLOT_CTX = [0, 1, 31, 32, 33, 639, 300, 512]
 FAMILY_SHAPES = {
     # chip_smoke.py shapes (i)-(k): B 8, c 32, page 16, ragged ctx
     "i_decode_scout": (8, 32, 40, 8, 128, 16, 128, RAGGED_CTX),
     "j_decode_qwen2vl": (8, 32, 12, 2, 128, 16, 128, RAGGED_CTX),
     "k_decode_kimi_k2": (8, 32, 64, 8, 112, 16, 128, RAGGED_CTX),
+    # shape (o): the hybrid's dense-slot cache partial at Jamba's heads, one
+    # page of S = 640 tokens a request
+    "o_slot_jamba": (8, 32, 64, 8, 128, 640, 1, SLOT_CTX),
 }
 # bf16: the picked body and split count, one split, the CUDA-core body
 FAMILY_VARIANTS = [v for v in VARIANTS if v[0] == "bfloat16"
@@ -126,6 +132,33 @@ def _check_paged(cuda, shape, dtype, forced):
     assert torch.all(l[0] == 0)
 
 
+def test_kernel_on_slot_view_matches_plain_version(cuda):
+    """The dense-slot cache partial as the model passes it (shape (o)):
+    layer l's slot cache [B, S, KVH, D] read as B pages of S tokens, with
+    ``block_tables = arange(B)[:, None]`` and ``ctx_lens`` the slots'
+    lengths; no copy is made of the cache."""
+    B, c, H, KVH, D, S = 8, 32, 64, 8, 128, 640
+    rng = np.random.default_rng(7)
+    mk = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                                    device=cuda).to(torch.bfloat16)
+    q, cache_k, cache_v = mk(B, c, H, D), mk(2, B, S, KVH, D), \
+        mk(2, B, S, KVH, D)
+    tables = torch.arange(B, dtype=torch.int32, device=cuda)[:, None]
+    lens = torch.as_tensor(SLOT_CTX, dtype=torch.int32, device=cuda)
+    before = cpa.LAUNCHES
+    acc, m, l = cpa.paged_chunk_attention(q, cache_k[1], cache_v[1], tables,
+                                          lens)
+    torch.cuda.synchronize()
+    assert cpa.LAUNCHES == before + 1
+    acc_r, m_r, l_r = cpa.paged_chunk_ref(q, cache_k[1], cache_v[1], tables,
+                                          lens)
+    torch.testing.assert_close(m, m_r, rtol=1e-5, atol=1e-4)
+    rel = float((acc - acc_r).abs().max()) / float(acc_r.abs().max())
+    assert rel < 3e-2, rel
+    torch.testing.assert_close(l, l_r, rtol=3e-2, atol=1e-5)
+    assert torch.all(acc[0] == 0) and torch.all(l[0] == 0)
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 1, 4, 12), device=cuda)
     kp = torch.zeros((2, 16, 2, 12), device=cuda)
@@ -178,6 +211,8 @@ BD_FAMILY_SHAPES = {
     "l_wave_scout": (8, 512, 40, 8, 128, 32, WAVE_LENGTHS),
     "m_wave_qwen2vl": (8, 512, 12, 2, 128, 32, WAVE_LENGTHS),
     "n_wave_kimi_k2": (8, 512, 64, 8, 112, 32, WAVE_LENGTHS),
+    # shape (p): the hybrid's padded slot prefill at Jamba's heads
+    "p_prefill_jamba": (1, 640, 64, 8, 128, 32, [417]),
 }
 BD_FAMILY_VARIANTS = [v for v in BD_VARIANTS if v[0] == "bfloat16"]
 

@@ -56,6 +56,17 @@ CONFIGS = {
 }
 # tests/test_prefill_interleave.py's AR config (causal prefill)
 AR_CFG = {**PAGED_CFG, "name": "tar", "diffusion": False}
+# tests/test_chunked_equivalence.py's 8-layer hybrid: two periods of 4
+HYBRID8_CFG = dict(name="h", family="hybrid", n_layers=8, d_model=64,
+                   n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=256,
+                   attn_period=4, attn_offset=1, block_size=8)
+# the recurrent families on the dense-slot path
+RECURRENT_CONFIGS = {
+    "rwkv6_smoke": _smoke("rwkv6-1.6b"),
+    "jamba_smoke": _smoke("jamba-1.5-large-398b"),
+    "hybrid8": (lambda: JaxArchConfig(**HYBRID8_CFG),
+                lambda: ArchConfig(**HYBRID8_CFG)),
+}
 WAVE_CONFIGS = {**CONFIGS, "paged_backend_ar": (
     lambda: JaxArchConfig(**AR_CFG), lambda: ArchConfig(**AR_CFG))}
 
@@ -195,18 +206,20 @@ def test_prefill_paged_matches_jax(which, head_mode):
 
 
 def test_param_layout_and_count_match_jax():
-    """The port's own init has the bridged layout (names, shapes, dtypes),
-    and the meta-device count equals the JAX abstract count."""
-    jcfg = jax_smoke("sdar-8b")
-    jparams = jax_build(jcfg).init(jax.random.PRNGKey(0))
-    bridged = params_from_jax(jax.tree.map(np.asarray, jparams),
-                              device="cpu")
-    tm = build_model(get_smoke_config("sdar-8b"))
-    own = tm.init_params(torch.Generator().manual_seed(0), device="cpu")
-    assert {k: (tuple(v.shape), v.dtype) for k, v in own.items()} == \
-        {k: (tuple(v.shape), v.dtype) for k, v in bridged.items()}
+    """The port's own init has the bridged layout (names, shapes, dtypes)
+    for a dense, an ssm and a hybrid config, and the meta-device count
+    equals the JAX abstract count for every ported family."""
+    for smoke in ("sdar-8b", "rwkv6-1.6b", "jamba-1.5-large-398b"):
+        jparams = jax_build(jax_smoke(smoke)).init(jax.random.PRNGKey(0))
+        bridged = params_from_jax(jax.tree.map(np.asarray, jparams),
+                                  device="cpu")
+        tm = build_model(get_smoke_config(smoke))
+        own = tm.init_params(torch.Generator().manual_seed(0), device="cpu")
+        assert {k: (tuple(v.shape), v.dtype) for k, v in own.items()} == \
+            {k: (tuple(v.shape), v.dtype) for k, v in bridged.items()}
     for name in ("sdar-8b", "smollm-135m", "llama3.2-1b",
-                 "llama4-scout-17b-a16e", "kimi-k2-1t-a32b", "qwen2-vl-2b"):
+                 "llama4-scout-17b-a16e", "kimi-k2-1t-a32b", "qwen2-vl-2b",
+                 "rwkv6-1.6b", "jamba-1.5-large-398b"):
         from repro.configs import get_config as jget
         from repro_torch.configs import get_config as tget
         assert tget(name).param_count() == jget(name).param_count()
@@ -348,15 +361,213 @@ def test_paged_dispatch_mm_embeds_matches_jax(entry):
     assert not torch.allclose(plain, first, atol=1e-3)  # the embeds count
 
 
-@pytest.mark.parametrize("name", ["rwkv6-1.6b", "jamba-1.5-large-398b",
-                                  "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("name", ["seamless-m4t-large-v2"])
 def test_unported_families_raise(name):
-    """ssm, hybrid and encdec are not ported: building them raises."""
+    """encdec is not ported: building it raises."""
     cfg = get_smoke_config(name)
-    assert cfg.family in ("ssm", "hybrid", "encdec")
+    assert cfg.family == "encdec"
     with pytest.raises(NotImplementedError, match=cfg.family):
         build_model(cfg)
     with pytest.raises(NotImplementedError, match=cfg.family):
         TransformerLM(cfg)
     assert isinstance(build_model(get_config("llama4-scout-17b-a16e")),
                       TransformerLM)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: the dense-slot entry points
+# ---------------------------------------------------------------------------
+
+# The recurrent SMOKE models amplify fp32 rounding: RWKV6's per-head group
+# norm over 16 dims and Jamba's Mamba layers turn ulp-level differences of
+# exp/tanh/rsqrt into logit differences far above them.  Each package's
+# fp32 logits sit 7e-6 to 1.02e-4 from an fp64 evaluation of the same
+# weights and tokens (test_recurrent_fp32_spread below, on the CPU), so a
+# 1e-5 limit would hold the port to noise the reference itself carries.
+# Logits, states and KV of these families are held at twice the largest
+# spread measured.
+RECURRENT_ATOL = 2e-4
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=0, atol=RECURRENT_ATOL)
+
+
+def _states_close(tstates, jstates):
+    assert sorted(tstates) == sorted(jstates)
+    for key, st in jstates.items():
+        assert sorted(tstates[key]) == sorted(st)
+        for name, v in st.items():
+            _close(tstates[key][name], v)
+
+
+def _slot_close(tcache, jcache):
+    """Slot KV, len and states of both caches."""
+    for name in ("k", "v"):
+        assert (name in tcache) == (name in jcache)
+        if name in jcache:
+            _close(tcache[name], jcache[name])
+    np.testing.assert_array_equal(tcache["len"].numpy(),
+                                  np.asarray(jcache["len"]))
+    _states_close(tcache["states"], jcache["states"])
+
+
+def _prefilled(which):
+    """Both models on the same weights, each with a slot cache (B 2, S 48)
+    prefilled with a padded prompt batch of lengths 20 and 13."""
+    jcfg, tcfg = (f() for f in RECURRENT_CONFIGS[which])
+    jm, tm = jax_build(jcfg), build_model(tcfg)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams),
+                              device="cpu")
+    rng = np.random.default_rng(11)
+    lens = np.asarray([20, 13], np.int32)
+    toks = rng.integers(4, tcfg.vocab_size, (2, 24)).astype(np.int32)
+    jcache = jm.init_cache(2, 48, dtype=jnp.float32)
+    tcache = tm.init_cache(2, 48, dtype=torch.float32, device="cpu")
+    jl, jcache = jm.prefill(jparams, jnp.asarray(toks), jnp.asarray(lens),
+                            jcache)
+    tl, tnew = tm.prefill(tparams, torch.from_numpy(toks),
+                          torch.from_numpy(lens), tcache)
+    return (jm, tm, jparams, tparams, tcfg, rng, (jl, jcache),
+            (tl, tcache, tnew))
+
+
+@pytest.mark.parametrize("entry", ["prefill", "chunk_forward",
+                                   "advance_states", "freeze", "apply"])
+@pytest.mark.parametrize("which", sorted(RECURRENT_CONFIGS))
+def test_dense_slot_dispatches_match_jax(which, entry):
+    """Each dense-slot entry point on both sides from the same prefilled
+    state (the port's own, held to the reference's first): prefill's
+    logits, states, KV and len; a window's logits and KV; an advance's
+    logits, states, KV and len; a freeze's KV and len; a full forward's
+    logits.  The port writes its slot cache in place."""
+    (jm, tm, jparams, tparams, tcfg, rng, (jl, jcache),
+     (tl, tcache, tnew)) = _prefilled(which)
+    ptrs = [t.data_ptr() for t in (tcache.get("k"), tcache["len"]) if
+            t is not None]
+    if entry == "prefill":
+        _close(tl, jl)
+        assert tnew["states"].keys() == tcache["states"].keys()
+        _states_close(tnew["states"], jcache["states"])
+        _slot_close(tcache, jcache)
+        return
+    _slot_close(tcache, jcache)
+    B, c = 2, 8
+    i32 = functools.partial(np.asarray, dtype=np.int32)
+    toks = rng.integers(4, tcfg.vocab_size, (B, c)).astype(np.int32)
+    start = np.asarray(tcache["len"].numpy())
+    if entry in ("chunk_forward", "freeze"):
+        valid = i32([c, 5])
+        jl2, jkv = jm.chunk_forward(jparams, jcache, jnp.asarray(toks),
+                                    jnp.asarray(start), jnp.asarray(valid))
+        tl2, tkv = tm.chunk_forward(tparams, tcache, torch.from_numpy(toks),
+                                    torch.from_numpy(start),
+                                    torch.from_numpy(valid))
+        _close(tl2, jl2)
+        assert (tkv is None) == (jkv is None)
+        for name in ("k", "v") if jkv is not None else ():
+            _close(tkv[name], jkv[name])
+        if entry == "freeze":
+            n_adv = i32([3, 0])
+            jcache = jm.freeze(jcache, jkv, jnp.asarray(start),
+                               jnp.asarray(n_adv))
+            same = tm.freeze(tcache, tkv, torch.from_numpy(start),
+                             torch.from_numpy(n_adv))
+            assert same is tcache
+            _slot_close(tcache, jcache)
+    elif entry == "advance_states":
+        lens = i32([c, 3])
+        jl2, jnew = jm.advance_states(jparams, jcache, jnp.asarray(toks),
+                                      jnp.asarray(lens))
+        tl2, tnew = tm.advance_states(tparams, tcache, torch.from_numpy(toks),
+                                      torch.from_numpy(lens))
+        _close(tl2, jl2)
+        _states_close(tnew["states"], jnew["states"])
+        tcache = {**tcache, "states": tnew["states"]}
+        _slot_close(tcache, jnew)
+    else:
+        T = 24
+        seq = rng.integers(4, tcfg.vocab_size, (B, T)).astype(np.int32)
+        mode = "block_causal" if tcfg.diffusion else "causal"
+        lens = i32([T, T - 5])
+        jl2 = jm.apply(jparams, jnp.asarray(seq), mask_mode=mode,
+                       lengths=jnp.asarray(lens))
+        tl2 = tm.apply(tparams, torch.from_numpy(seq), mask_mode=mode,
+                       lengths=torch.from_numpy(lens))
+        _close(tl2, jl2)
+    assert [t.data_ptr() for t in (tcache.get("k"), tcache["len"]) if
+            t is not None] == ptrs
+
+
+@pytest.mark.parametrize("mode", ["causal", "block_causal", "bidirectional"])
+def test_apply_mask_modes_match_jax(mode):
+    """The hybrid's full forward under each mask mode (block 1, the model's
+    block, a block of T in the block-diffusion call) with a short row."""
+    jcfg, tcfg = (f() for f in RECURRENT_CONFIGS["hybrid8"])
+    jm, tm = jax_build(jcfg), build_model(tcfg)
+    jparams = jm.init(jax.random.PRNGKey(1))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams),
+                              device="cpu")
+    seq = np.random.default_rng(12).integers(4, 256, (2, 20)).astype(np.int32)
+    lens = np.asarray([20, 9], np.int32)
+    want = jm.apply(jparams, jnp.asarray(seq), mask_mode=mode,
+                    lengths=jnp.asarray(lens))
+    got = tm.apply(tparams, torch.from_numpy(seq), mask_mode=mode,
+                   lengths=torch.from_numpy(lens))
+    _close(got, want)
+    with pytest.raises(NotImplementedError, match="training"):
+        tm.apply(tparams, torch.from_numpy(seq),
+                 positions=torch.zeros((2, 3, 20), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("T,c", [(16, 8), (8, 16), (24, 8)])
+def test_window_logits_equal_full_forward_hybrid(T, c):
+    """tests/test_chunked_equivalence.py:42 for the hybrid on the port: a
+    window against the block-aligned prefilled cache and states gives the
+    full block-causal forward's logits (the reference's tolerance)."""
+    cfg = ArchConfig(**HYBRID8_CFG)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0),
+                               device="cpu")
+    B = 2
+    tokens = torch.randint(4, cfg.vocab_size, (B, T + c),
+                           generator=torch.Generator().manual_seed(1))
+    full = model.apply(params, tokens, mask_mode="block_causal")
+    cache = model.init_cache(B, 64, dtype=torch.float32, device="cpu")
+    model.prefill(params, tokens[:, :T], torch.full((B,), T), cache)
+    lg, _ = model.chunk_forward(params, cache, tokens[:, T:], cache["len"],
+                                torch.full((B,), c))
+    torch.testing.assert_close(lg, full[:, T:], rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("which", ["rwkv6_smoke", "jamba_smoke"])
+def test_recurrent_fp32_spread(which, monkeypatch):
+    """RECURRENT_ATOL's measurement: the reference's and the port's fp32
+    logits of one full forward (B 2, T 24) against the port's fp64
+    evaluation of the same weights and tokens (every ``.float()`` of the
+    port made fp64 for this run).  Both sit within the limit; the spread
+    is what it is, whichever package is nearer the fp64 result."""
+    jcfg, tcfg = (f() for f in RECURRENT_CONFIGS[which])
+    jm, tm = jax_build(jcfg), build_model(tcfg)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams),
+                              device="cpu")
+    toks = np.random.default_rng(11).integers(
+        4, tcfg.vocab_size, (2, 24)).astype(np.int32)
+    mode = "block_causal" if tcfg.diffusion else "causal"
+    ref = np.asarray(jm.apply(jparams, jnp.asarray(toks), mask_mode=mode))
+    port = tm.apply(tparams, torch.from_numpy(toks), mask_mode=mode).numpy()
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.Tensor, "float", lambda self: self.double())
+        m64 = build_model(tcfg.replace(param_dtype="float64",
+                                       compute_dtype="float64"))
+        exact = m64.apply({k: v.double() for k, v in tparams.items()},
+                          torch.from_numpy(toks), mask_mode=mode)
+    assert exact.dtype == torch.float64
+    exact = exact.numpy()
+    ref_err, port_err = (float(np.abs(a - exact).max()) for a in (ref, port))
+    print(f"{which}: fp32 vs fp64 logits, reference {ref_err:.3e}, port "
+          f"{port_err:.3e}")
+    assert ref_err < RECURRENT_ATOL and port_err < RECURRENT_ATOL

@@ -17,6 +17,7 @@ import hashlib
 import jax
 import numpy as np
 import pytest
+import torch
 
 import repro.core as jcore
 import repro.serving as jserving
@@ -354,3 +355,154 @@ def test_prefix_cache_cow_and_host_tier_match_reference(weights, mode):
     hits, cow, swap_in, _ = stats[1]
     assert hits > 0 and swap_in > 0 and (cow > 0 or mode == "elastic")
     assert (be.kv.k_pages.data_ptr(), be.kv.v_pages.data_ptr()) == ptr
+
+
+# ---------------------------------------------------------------------------
+# the recurrent-slot mode (ssm AR, hybrid block-pinned)
+# ---------------------------------------------------------------------------
+
+# tests/test_engine.py:181,194's configs
+CFG_HYBRID = dict(name="h", family="hybrid", n_layers=4, d_model=64,
+                  n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=256,
+                  attn_period=4, attn_offset=1, block_size=8)
+CFG_RWKV = dict(name="r", family="ssm", n_layers=2, d_model=64,
+                rwkv_head_dim=16, d_ff=128, vocab_size=256, diffusion=False)
+RECURRENT = {"rwkv_ar": (CFG_RWKV, "ar", 1, 8),
+             "hybrid_block_pinned": (CFG_HYBRID, "elastic", 8, 16)}
+
+
+def _slot_ptrs(be):
+    return [t.data_ptr() for st in be.cache.get("states", {}).values()
+            for t in st.values()] + \
+        [be.cache[n].data_ptr() for n in ("k", "v", "len") if n in be.cache]
+
+
+@pytest.mark.parametrize("which", sorted(RECURRENT))
+def test_model_backend_recurrent_commits_same_tokens(which):
+    """The recurrent-slot mode through both engines on bridged weights (3
+    requests on 2 slots, so a released slot is reused): identical committed
+    tokens, histories and counters; the port's slot cache never moves."""
+    cfg, mode, chunk, out = RECURRENT[which]
+    jm, jparams, tm, tparams = _bridged(cfg)
+    results = []
+    for side in ("jax", "torch"):
+        core, serving, _ = SIDES[side]
+        kw = dict(n_slots=2, max_len=64, decode_mode=mode)
+        if side == "jax":
+            be = serving.ModelBackend(jm, jparams, **kw)
+        else:
+            be = serving.ModelBackend(tm, tparams, device="cpu", **kw)
+            assert not be.paged and be.kv is None
+            ptrs = _slot_ptrs(be)
+        eng = serving.ServingEngine(be, core.FixedScheduler(chunk),
+                                    max_batch=2)
+        outs = {}
+        release = be.release
+
+        def spy(rid, be=be, release=release, outs=outs):
+            outs[rid] = be.state(rid).output_tokens
+            release(rid)
+
+        be.release = spy
+        reqs = _requests(serving, 3, seed=5)
+        for r in reqs:
+            r.max_new_tokens = out
+        rep = eng.run(reqs)
+        results.append((rep, outs, (be.decode_dispatches,
+                                    be.prefill_dispatches,
+                                    be.host_transfer_bytes)))
+    (rep_j, out_j, cnt_j), (rep_t, out_t, cnt_t) = results
+    assert len(out_t) == len(out_j) == 3
+    assert all(len(v) == out for v in out_t.values())
+    assert out_t == out_j
+    assert rep_t.chunk_history == rep_j.chunk_history
+    assert rep_t.batch_history == rep_j.batch_history
+    assert (rep_t.total_tokens, rep_t.computed_tokens) == \
+        (rep_j.total_tokens, rep_j.computed_tokens)
+    assert cnt_t == cnt_j
+    assert _slot_ptrs(be) == ptrs
+    if mode == "ar":
+        assert rep_t.token_utilization == 1.0
+
+
+def _own(cfg):
+    model = build_model(ArchConfig(**cfg))
+    return model, model.init_params(torch.Generator().manual_seed(0),
+                                    device="cpu")
+
+
+def _one_request(prompt, seed=0):
+    rng = np.random.default_rng(seed)
+    return tserving.Request(rid=0, arrival_time=0.0, prompt_len=prompt,
+                            max_new_tokens=8,
+                            prompt_tokens=rng.integers(4, 250,
+                                                       prompt).tolist())
+
+
+def test_hybrid_slot_release_resets_len():
+    """tests/test_paged_backend.py:284 on the port: releasing a hybrid slot
+    zeroes its context length (and its states) for the next occupant."""
+    model, params = _own(CFG_HYBRID)
+    be = tserving.ModelBackend(model, params, n_slots=2, max_len=64,
+                               device="cpu")
+    assert not be.paged                                # slot path retained
+    req = _one_request(24)
+    be.admit(req)
+    slot = be._slot_of[req.rid]
+    assert int(be.cache["len"][slot]) == 24
+    be.release(req.rid)
+    assert int(be.cache["len"][slot]) == 0
+    for st in be.cache["states"].values():
+        assert all(not t[:, slot].any() for t in st.values())
+
+
+def test_release_resets_recurrent_states():
+    """tests/test_paged_backend.py:302 on the port: prefill writes the
+    slot's states, release zeroes them."""
+    model, params = _own(CFG_RWKV)
+    be = tserving.ModelBackend(model, params, n_slots=1, max_len=64,
+                               decode_mode="ar", device="cpu")
+    req = _one_request(8)
+    be.admit(req)
+    slot = be._slot_of[req.rid]
+    leaves = [t for st in be.cache["states"].values() for t in st.values()]
+    assert any(t[:, slot].any() for t in leaves)       # prefill wrote state
+    be.release(req.rid)
+    assert all(not t[:, slot].any() for t in leaves)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b"])
+def test_padded_prefill_states_match_reference(arch):
+    """The inherited padded-prefill behaviour, pinned: admission pads a
+    12-token prompt with zeros to ``max_len`` 32, so the slot's recurrent
+    states have run over 20 pad tokens.  The port's slot states equal the
+    reference's (the dense-slot tolerance of tests/test_torch_model.py),
+    and both differ from a prefill of the 12 tokens alone."""
+    cfg = dataclasses.asdict(get_smoke_config(arch))
+    jm, jparams, tm, tparams = _bridged(cfg)
+    req_j = jserving.Request(rid=0, arrival_time=0.0, prompt_len=12,
+                             max_new_tokens=8,
+                             prompt_tokens=_one_request(12).prompt_tokens)
+    be_j = jserving.ModelBackend(jm, jparams, n_slots=2, max_len=32,
+                                 decode_mode="ar")
+    be_t = tserving.ModelBackend(tm, tparams, n_slots=2, max_len=32,
+                                 decode_mode="ar", device="cpu")
+    be_j.admit(req_j)
+    be_t.admit(_one_request(12))
+    slot = be_t._slot_of[0]
+    assert be_j._slot_of[0] == slot
+    alone = tm.init_cache(1, 12, dtype=torch.float32, device="cpu")
+    tm.prefill(tparams, torch.as_tensor([req_j.prompt_tokens]),
+               torch.as_tensor([12]), alone)
+    moved = 0.0
+    for key, st in be_t.cache["states"].items():
+        for name, t in st.items():
+            np.testing.assert_allclose(
+                t[:, slot].numpy(),
+                np.asarray(be_j.cache["states"][key][name])[:, slot],
+                rtol=0, atol=2e-4)
+            moved = max(moved, float((t[:, slot] - alone["states"][key][name]
+                                      [:, 0]).abs().max()))
+    print(f"{arch}: padded vs unpadded slot states, largest difference "
+          f"{moved:.4f}")
+    assert moved > 1.0
