@@ -11,8 +11,10 @@ Phases, in order (any failed check raises and the script exits non-zero):
 3. kernel phase: each kernel's wrapper on CUDA tensors against its plain
    PyTorch version on the same inputs, at the serving path's shapes (those
    of SDAR-8B, and of Llama-4 Scout, Qwen2-VL-2B and Kimi K2: GQA groups 5
-   and 6, head dim 112; and the hybrid's: (o) the slot view, one page of
-   640 tokens a request, (p) the [1, 640] prefill), under each body (bf16: the tensor-core body the
+   and 6, head dim 112; the hybrid's: (o) the slot view, one page of
+   640 tokens a request, (p) the [1, 640] prefill; and SeamlessM4T's, G 1
+   and head dim 64: (q) the decoder's slot read, (r) its cross read, (s)
+   the bidirectional encoder), under each body (bf16: the tensor-core body the
    wrapper picks and the first, CUDA-core design; the paged kernel's
    tensor-core body also with one split),
    with times (CUDA events; the block-diffusion kernel beside
@@ -77,7 +79,27 @@ Phases, in order (any failed check raises and the script exits non-zero):
    plain path's experts, held at limits their controls must break
    (free-running expert flips, and the plain split version's, as
    readings), and the ``chunk_forward`` profiled (the Mamba scans', the
-   paged kernel's and ``_grouped_mm``'s device time).
+   paged kernel's and ``_grouped_mm``'s device time);
+12. training on the card: (a) ``Trainer`` on SDAR-8B at full width cut to
+   4 of 36 layers (2.016B params; B 4 x 1024 tokens, block-diffusion loss,
+   remat, fp32 AdamW moments): one step's gradients (every leaf's norm
+   above 0; 2 microbatches against 1 within the bf16 tolerance), the
+   training route's forward against ``apply(impl="kernel")`` at a limit
+   its x1.03 control must break, 10 steps (the loss falls; no hand kernel
+   launches), the restart drill (checkpoint at step 5, failure at 7,
+   resume: the final loss matches), one step profiled; (b) ``python -m
+   repro_torch.launch.train`` on smollm-135m at full width and depth in a
+   subprocess (20 steps, the loss falls); (c) 2 steps of ``encdec_loss`` on
+   SeamlessM4T-large-v2 at full width and depth (finite, every leaf's
+   gradient norm above 0);
+13. the encoder-decoder family: SeamlessM4T-large-v2 at full width and
+   depth (24 + 24 layers, random weights drawn on the card): 8 sources
+   admitted (block-diffusion launches = 24 encoder layers x 1 admission),
+   8 block-pinned windows of c 32 (paged launches = 2 x 24 layers x 8
+   windows, self and cross reads of the slot views), the caches in place,
+   finite logits; the first layer's encoder, self-read and cross-read
+   outputs against the plain path at limits their controls must break; one
+   window profiled.
    Each model is freed before the next is drawn.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -90,9 +112,12 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -106,8 +131,15 @@ BF16_TOL, FP32_TOL = 3e-2, 2e-5   # tests/test_kernels.py:13-14
 DEVICE = "cuda"
 
 
+T0 = time.perf_counter()
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def log_phase(name: str):
+    log(f"== {name} (at {time.perf_counter() - T0:.1f} s)")
 
 
 def card_line() -> str:
@@ -186,6 +218,13 @@ KERNEL_SHAPES = [
     # S = 640 tokens a request (the slot cache read as B pages)
     ("o_slot_jamba", 8, 32, 64, 8, 128, 640, "bfloat16",
      [0, 1, 31, 32, 33, 639, 300, 512]),
+    # the encoder-decoder's decoder (SeamlessM4T: 16/16 heads, G 1, head_dim
+    # 64): its slot cache (S 256) and its cross cache (S 1024, the source
+    # lengths of phase 13), one page a request
+    ("q_encdec_self", 8, 32, 16, 16, 64, 256, "bfloat16",
+     [0, 1, 31, 32, 33, 255, 100, 200]),
+    ("r_encdec_cross", 8, 32, 16, 16, 64, 1024, "bfloat16",
+     [1024, 17, 512, 700, 1, 333, 900, 256]),
 ]
 
 
@@ -222,6 +261,10 @@ BD_SHAPES = [
     ("n_wave_kimi_k2", 8, 512, 64, 8, 112, 32, "bfloat16", WAVE_LENGTHS),
     # the hybrid's padded slot prefill at Jamba's heads
     ("p_prefill_jamba", 1, 640, 64, 8, 128, 32, "bfloat16", [417]),
+    # SeamlessM4T's encoder: bidirectional (block = S_src) over the source
+    # lengths of phase 13, 16/16 heads, head_dim 64
+    ("s_encoder_seamless", 8, 1024, 16, 16, 64, 1024, "bfloat16",
+     [1024, 17, 512, 700, 1, 333, 900, 256]),
 ]
 
 
@@ -1627,18 +1670,21 @@ def ssm_phase(model, params, seed: int) -> dict:
     return res
 
 
-def attention_outputs(run):
+def attention_outputs(run, module=None, names=None):
     """``run()`` with the output of every attention call of the model
     recorded (the block-diffusion output, or the paged partial normalised as
-    acc / l), whichever route, kernel or plain, the call takes.  Returns
+    acc / l), whichever route, kernel or plain, the call takes: the calls of
+    ``names`` (by default the kernels' and their plain versions') as
+    ``module`` (by default ``models/transformer.py``) calls them.  Returns
     (run's result, outputs in call order)."""
     import torch
 
     import repro_torch.models.transformer as tfm
 
-    names = ("block_diffusion_attention", "block_diffusion_ref",
-             "paged_chunk_attention", "paged_chunk_ref")
-    saved = {name: getattr(tfm, name) for name in names}
+    module = module or tfm
+    names = names or ("block_diffusion_attention", "block_diffusion_ref",
+                      "paged_chunk_attention", "paged_chunk_ref")
+    saved = {name: getattr(module, name) for name in names}
     outs = []
 
     def recorder(fn):
@@ -1653,12 +1699,12 @@ def attention_outputs(run):
         return rec
 
     for name, fn in saved.items():
-        setattr(tfm, name, recorder(fn))
+        setattr(module, name, recorder(fn))
     try:
         result = run()
     finally:
         for name, fn in saved.items():
-            setattr(tfm, name, fn)
+            setattr(module, name, fn)
     return result, outs
 
 
@@ -2012,6 +2058,605 @@ def serve_recurrent(model, params, reqs) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# training on the card (phase 12)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "sdar-8b"
+TRAIN_CUTS = {"n_layers": 4}     # full width, 4 of 36 layers: 2.016B params
+TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 4, 1024, 10, 1e-3
+DRILL_CKPT, DRILL_FAIL = 5, 7    # checkpoint at step 5, failure at step 7
+# The training phase holds: 1 and 2 microbatches' gradients of one step
+# within the bf16 tolerance of one another (max |g2 - g1| / max |g1| a leaf;
+# the one-microbatch gradients are bf16, the accumulated ones fp32); the
+# resumed run's final loss within RESUME_RTOL of the uninterrupted run's
+# (not under deterministic algorithms: the exact difference is printed);
+# the training route's forward against the block-diffusion kernel's under
+# no_grad at TRAIN_LIMITS, which the control (the kernel's output x (1 +
+# CONTROL_SKEW) in every layer) must break.  ``attn_rel`` is the first
+# layer's attention output at its call site, as in phase 11; ``logits_rel``
+# is max |logits - logits_train| / std(logits_train).  The first H100 run
+# read attn_rel 0.0045 and logits_rel 0.047 for the kernel, 0.0315 and
+# 0.153 for the control: the logits limit sits between the two.
+MB_TOL = BF16_TOL
+RESUME_RTOL = 2e-3
+TRAIN_LIMITS = {"attn_rel": 0.015, "logits_rel": 0.1}
+TRAIN_BREAKS = ("attn_rel", "logits_rel")
+GEMM_KERNELS = ("gemm", "nvjet", "xmma", "cutlass", "sm90_")
+ENC_TRAIN_B, ENC_TRAIN_S, ENC_TRAIN_T = 4, 512, 256
+ENC_TRAIN_LENS = [512, 400, 130, 17]
+# the launcher's flags; --lr 1e-3 because at the default 3e-4, 20 steps
+# move the block-diffusion loss less than its batch-to-batch noise (its
+# final loss came out above its first in an fp32 run of these 20 steps)
+LAUNCHER_ARGS = ["--arch", "smollm-135m", "--steps", "20", "--seq", "256",
+                 "--batch", "8", "--lr", "1e-3"]
+
+
+class GradsOut:
+    """An optimizer that leaves the params alone and returns the step's
+    gradients as its metrics."""
+
+    def update(self, grads, state, params):
+        return params, state, {"grads": grads}
+
+
+class NormsThenAdamW:
+    """AdamW that first records every leaf's gradient norm."""
+
+    def __init__(self, opt):
+        self.opt, self.norms = opt, []
+
+    def update(self, grads, state, params):
+        self.norms.append({k: float(g.float().norm())
+                           for k, g in grads.items()})
+        return self.opt.update(grads, state, params)
+
+
+def profile_train_step(step, n: int = 1) -> dict:
+    """Where one train step's time goes: wall (host clock around
+    ``torch.cuda.synchronize``), device time and busy share from
+    ``torch.profiler``, and the share of the product kernels (cuBLAS and
+    CUTLASS GEMMs by name, the attention's products among them)."""
+    import torch
+
+    step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = torch.autograd.DeviceType.CUDA
+    kern = sorted(((e.key, e.self_device_time_total, e.count)
+                   for e in prof.key_averages() if e.device_type == dev
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda r: -r[1])
+    busy = sum(t for _, t, _ in kern)
+    gemm = sum(t for k, t, _ in kern
+               if any(s in k.lower() for s in GEMM_KERNELS))
+    return {"wall_ms_profiled": wall_us / n / 1e3,
+            "device_ms_per_step": busy / n / 1e3,
+            "device_busy_share": busy / wall_us,
+            "gemm_ms_per_step": gemm / n / 1e3,
+            "gemm_share_of_device": gemm / max(busy, 1e-9),
+            "device_kernels_per_step": sum(c for *_, c in kern) / n,
+            "top": [{"name": k[:90], "ms_per_step": t / n / 1e3,
+                     "calls_per_step": c / n} for k, t, c in kern[:8]]}
+
+
+def train_phase(seed: int, workdir: Path) -> dict:
+    """Phase 12 (a): SDAR-8B at full width, 4 layers, trained by
+    ``Trainer`` (B 4 x 1024 tokens, block-diffusion loss, remat, fp32 AdamW
+    moments) on the card: one step's gradients (every leaf's norm above 0;
+    2 microbatches against 1), the training forward against the kernel's,
+    the 10-step run, the restart drill, and one step profiled."""
+    import numpy as np
+    import torch
+
+    import repro_torch.models.transformer as tfm
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import block_diffusion_attn as bda
+    from repro_torch.kernels import chunked_paged_attn as cpa
+    from repro_torch.models import layers
+    from repro_torch.training import (AdamWConfig, DataConfig,
+                                      FailureInjector, SimulatedFailure,
+                                      Trainer, TrainerConfig)
+    from repro_torch.training.objectives import diffusion_masks
+    from repro_torch.training.train_loop import (make_train_step,
+                                                 step_generator)
+
+    cfg = get_config(TRAIN_ARCH).replace(**TRAIN_CUTS)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_T,
+                    global_batch=TRAIN_B)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                          total_steps=TRAIN_STEPS)
+
+    def trainer(ckpt_every, sub, inj=None):
+        return Trainer(cfg, dc, opt_cfg, TrainerConfig(
+            total_steps=TRAIN_STEPS, ckpt_every=ckpt_every,
+            ckpt_dir=str(workdir / sub), log_every=5, seed=seed),
+            failure_injector=inj, device=DEVICE)
+
+    # one step's gradients from the trainer's first state, batch and masks
+    tr = trainer(0, "a")
+    state = tr.init_state()
+    params = state.pop("params")
+    del state
+    n_params = sum(t.numel() for t in params.values())
+    batch = {"tokens": torch.as_tensor(tr.data.batch(0), device=DEVICE)}
+    masks = diffusion_masks(step_generator(seed, 0, DEVICE), TRAIN_B,
+                            TRAIN_T, cfg.block_size)
+    grads, losses1 = {}, {}
+    for mb in (1, 2):
+        _, _, out = make_train_step(tr.model, GradsOut(), microbatches=mb)(
+            params, None, batch, masks=masks)
+        grads[mb], losses1[mb] = out["grads"], float(out["loss"])
+    norms = {k: float(g.float().norm()) for k, g in grads[1].items()}
+    mb_rel = {k: float((grads[2][k].float() - g.float()).abs().max())
+              / max(float(g.float().abs().max()), 1e-30)
+              for k, g in grads[1].items()}
+    del grads
+    worst = sorted(mb_rel, key=mb_rel.get)[-3:]
+    res = {"arch": cfg.name, "cuts": TRAIN_CUTS, "params": n_params,
+           "B": TRAIN_B, "T": TRAIN_T, "lr": TRAIN_LR,
+           "step1_loss_mb1": losses1[1], "step1_loss_mb2": losses1[2],
+           "grad_norm_min": min(norms.values()),
+           "grad_norm_min_leaf": min(norms, key=norms.get),
+           "zero_grad_leaves": [k for k, n in norms.items() if not n > 0],
+           "mb2_vs_mb1_rel_max": max(mb_rel.values()),
+           "mb2_vs_mb1_worst_leaves": {k: mb_rel[k] for k in worst},
+           "mb_tol": MB_TOL}
+    log(f"train {cfg.name} ({cfg.n_layers} layers, full width, {n_params} "
+        f"params, B {TRAIN_B} x T {TRAIN_T}): step-1 loss {losses1[1]:.5f} "
+        f"(2 microbatches {losses1[2]:.5f}); least leaf gradient norm "
+        f"{res['grad_norm_min']:.3e} ({res['grad_norm_min_leaf']}); 2 "
+        f"microbatches vs 1, max rel diff by leaf (largest three) "
+        f"{res['mb2_vs_mb1_worst_leaves']}, limit {MB_TOL}")
+
+    # the training route's forward against the kernel's, under no_grad
+    inputs = torch.where(masks["masked"], cfg.mask_token_id, batch["tokens"])
+
+    def forward(impl, names):
+        with torch.no_grad():
+            return attention_outputs(lambda: tr.model.apply(
+                params, inputs, mask_mode="block_causal", impl=impl),
+                names=names)
+
+    lt, at = forward("train", ("combine_partials",))
+    lk, ak = forward("kernel", ("block_diffusion_attention",))
+    exact = tfm.block_diffusion_attention
+    tfm.block_diffusion_attention = \
+        lambda *a, **k: exact(*a, **k) * (1 + CONTROL_SKEW)
+    try:
+        lc, ac = forward("kernel", ("block_diffusion_attention",))
+    finally:
+        tfm.block_diffusion_attention = exact
+    torch.cuda.synchronize()
+    lt_std = float(lt.std())
+
+    def fwd_readings(logits, outs):
+        return {"attn_rel": float((outs[0] - at[0]).abs().max())
+                / float(at[0].abs().max()),
+                "logits_rel": float((logits - lt).abs().max()) / lt_std,
+                "tokens_differ_share": float(
+                    (logits.argmax(-1) != lt.argmax(-1)).float().mean())}
+
+    fwd_sound, fwd_ctl = fwd_readings(lk, ak), fwd_readings(lc, ac)
+    finite = all(bool(torch.isfinite(t).all()) for t in (lt, lk))
+    res["forward"] = {"kernel_vs_train": fwd_sound,
+                      "control_vs_train": fwd_ctl, "limits": TRAIN_LIMITS,
+                      "logits_std_train": lt_std, "finite": finite,
+                      "attention_calls": [len(at), len(ak)]}
+    log(f"  forward, training route vs apply(impl='kernel'): logits std "
+        f"{lt_std:.4f}")
+    for key in fwd_sound:
+        log(f"    {key}: kernel {fwd_sound[key]:.5f}  control (out x "
+            f"{1 + CONTROL_SKEW}) {fwd_ctl[key]:.5f}  limit "
+            f"{TRAIN_LIMITS.get(key, 'none (a reading)')}")
+    del lt, lk, lc, at, ak, ac, params
+    torch.cuda.empty_cache()
+
+    # the 10-step run; the training route launches no hand kernel
+    torch.cuda.reset_peak_memory_stats()
+    cpa.LAUNCHES = cpa.MERGE_LAUNCHES = bda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    losses = tr.run(resume=False)
+    wall = time.perf_counter() - t0
+    kernel_launches = cpa.LAUNCHES + bda.LAUNCHES
+    times = list(tr.monitor._times[0])
+    med = statistics.median(times)
+    res.update({"losses": losses, "step_s": times, "median_step_s": med,
+                "tokens_per_s": TRAIN_B * TRAIN_T / med, "run_wall_s": wall,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "hand_kernel_launches_while_training": kernel_launches})
+    log(f"  {TRAIN_STEPS} steps: losses {[round(x, 4) for x in losses]}; "
+        f"median step {med:.4f} s ({res['tokens_per_s']:.0f} tokens/s), "
+        f"first step {times[0]:.3f} s; max_memory_allocated "
+        f"{res['max_memory_allocated']} B; hand kernel launches "
+        f"{kernel_launches}")
+
+    # the restart drill: checkpoint at 5, failure at 7, resume
+    drill = trainer(DRILL_CKPT, "drill",
+                    FailureInjector(fail_at_steps=(DRILL_FAIL,)))
+    failed = False
+    try:
+        drill.run(resume=False)
+    except SimulatedFailure:
+        failed = True
+    resumed = trainer(0, "drill").run(resume=True)
+    diff = abs(resumed[-1] - losses[-1])
+    res["drill"] = {"failed_at": DRILL_FAIL, "checkpoint_at": DRILL_CKPT,
+                    "injected_failure_raised": failed,
+                    "resumed_losses": resumed,
+                    "final_loss_abs_diff": diff,
+                    "bit_exact": resumed[-1] == losses[-1],
+                    "resumed_matches_steps": resumed == losses[DRILL_CKPT:],
+                    "rtol": RESUME_RTOL}
+    log(f"  restart drill: failure at step {DRILL_FAIL} raised {failed}; "
+        f"resumed from the step-{DRILL_CKPT} checkpoint, losses "
+        f"{[round(x, 4) for x in resumed]}; final loss {resumed[-1]!r} vs "
+        f"uninterrupted {losses[-1]!r} (|diff| {diff:.3e}, bit-exact "
+        f"{res['drill']['bit_exact']})")
+
+    # one step profiled; the plain attention and the LM head with its cross
+    # entropy timed alone (forward and backward; CUDA events, median of 5),
+    # and the AdamW update (median of 3)
+    state = tr.init_state()
+    gen = step_generator(seed, 0, DEVICE)
+
+    def one_step():
+        tr._step_fn(state["params"], state["opt"], batch, gen=gen)
+
+    prof = profile_train_step(one_step)
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    q = torch.randn((TRAIN_B, TRAIN_T, H, D), generator=g,
+                    device=DEVICE).to(cfg.cdt).requires_grad_()
+    k, v = (torch.randn((TRAIN_B, TRAIN_T, KVH, D), generator=g,
+                        device=DEVICE).to(cfg.cdt).requires_grad_()
+            for _ in range(2))
+    lens = torch.full((TRAIN_B,), TRAIN_T, dtype=torch.int32, device=DEVICE)
+
+    def attn(backward):
+        with torch.enable_grad():
+            part = layers.flash_partial_aligned(
+                q, k, v, lengths=lens, kind="block_causal",
+                block_size=cfg.block_size)
+            out = layers.combine_partials([part], cfg.cdt)
+            if backward:
+                torch.autograd.grad(out.float().sum(), (q, k, v))
+
+    x = torch.randn((TRAIN_B, TRAIN_T, cfg.d_model), generator=g,
+                    device=DEVICE).to(cfg.cdt).requires_grad_()
+
+    def head_ce():
+        with torch.enable_grad():
+            logits = tr.model.head(state["params"], x)
+            nll = torch.nn.functional.cross_entropy(
+                logits.float().flatten(0, 1), batch["tokens"].flatten().long())
+            torch.autograd.grad(nll, (x,))
+
+    attn_fb, attn_f = time_ms(lambda: attn(True), iters=5), time_ms(
+        lambda: attn(False), iters=5)
+    head_ms = time_ms(head_ce, iters=5)
+    zeros = {k: torch.zeros_like(p) for k, p in state["params"].items()}
+    adamw_ms = time_ms(lambda: tr.opt.update(zeros, state["opt"],
+                                             state["params"]),
+                       iters=3, warmup=1)
+    del zeros
+    # per layer, the step runs the attention forward three times (forward,
+    # the layer's remat recompute, each scan step's recompute) and its
+    # backward once: one forward and backward, and one more forward
+    attn_step = cfg.n_layers * (attn_fb + attn_f)
+    dev = prof["device_ms_per_step"]
+    prof.update({"plain_attention_fwd_bwd_ms_per_layer": attn_fb,
+                 "plain_attention_fwd_ms_per_layer": attn_f,
+                 "plain_attention_share_of_device": attn_step / dev,
+                 "lm_head_ce_fwd_bwd_ms": head_ms,
+                 "lm_head_ce_share_of_device": head_ms / dev,
+                 "adamw_update_ms": adamw_ms,
+                 "adamw_share_of_device": adamw_ms / dev})
+    res["profile"] = prof
+    log(f"  profile, one step: wall {prof['wall_ms_profiled']:.2f} ms, "
+        f"device {dev:.2f} ms (busy share {prof['device_busy_share']:.3f}) "
+        f"in {prof['device_kernels_per_step']:.0f} kernels; products "
+        f"{prof['gemm_ms_per_step']:.2f} ms (share "
+        f"{prof['gemm_share_of_device']:.3f}); plain attention, timed alone,"
+        f" {attn_fb:.3f} ms fwd+bwd + {attn_f:.3f} ms fwd a layer (share "
+        f"{prof['plain_attention_share_of_device']:.3f}); LM head + cross "
+        f"entropy fwd+bwd {head_ms:.3f} ms (share "
+        f"{prof['lm_head_ce_share_of_device']:.3f}); AdamW update "
+        f"{adamw_ms:.3f} ms (share {prof['adamw_share_of_device']:.3f})")
+    for r in prof["top"]:
+        log(f"    {r['ms_per_step']:8.3f} ms {r['calls_per_step']:6.1f}x  "
+            f"{r['name']}")
+    del state, q, k, v, x
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    checks = [
+        (all(np.isfinite(losses)) and all(np.isfinite(resumed)),
+         "a non-finite loss"),
+        (losses[-1] < losses[0], f"the loss did not fall: {losses}"),
+        (not res["zero_grad_leaves"],
+         f"leaves without a gradient: {res['zero_grad_leaves']}"),
+        (res["mb2_vs_mb1_rel_max"] < MB_TOL,
+         f"2 microbatches vs 1: {res['mb2_vs_mb1_rel_max']} >= {MB_TOL}"),
+        (failed, "the injected failure did not raise"),
+        (len(resumed) == TRAIN_STEPS - DRILL_CKPT,
+         f"the resumed run took {len(resumed)} steps"),
+        (diff <= RESUME_RTOL * abs(losses[-1]),
+         f"resumed final loss {resumed[-1]} vs {losses[-1]}"),
+        (kernel_launches == 0, "the training route launched a hand kernel"),
+        (finite, "non-finite logits in the forward check"),
+        (res["forward"]["attention_calls"] == [cfg.n_layers] * 2,
+         f"attention calls {res['forward']['attention_calls']}"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise AssertionError(f"train {cfg.name}: {msg}")
+    check_limits("train forward", fwd_sound, fwd_ctl, TRAIN_LIMITS,
+                 TRAIN_BREAKS)
+    return res
+
+
+def launcher_phase(workdir: Path) -> dict:
+    """Phase 12 (b): ``python -m repro_torch.launch.train`` at full width
+    and depth in a subprocess; its final loss must be below its first."""
+    args = [sys.executable, "-m", "repro_torch.launch.train",
+            *LAUNCHER_ARGS, "--ckpt-dir", str(workdir / "launcher")]
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.perf_counter()
+    out = subprocess.run(args, env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    shutil.rmtree(workdir / "launcher", ignore_errors=True)
+    if out.returncode != 0:
+        raise AssertionError(f"launch.train failed (rc {out.returncode}):\n"
+                             f"{out.stderr[-4000:]}")
+    lines = out.stdout.strip().splitlines()
+    first = float(next(x for x in lines if x.startswith("first loss:"))
+                  .split()[2])
+    final = float(next(x for x in lines if x.startswith("final loss:"))
+                  .split()[2])
+    res = {"args": LAUNCHER_ARGS, "first_loss": first, "final_loss": final,
+           "wall_s": wall, "stdout_tail": lines[-4:]}
+    log(f"launch.train {' '.join(LAUNCHER_ARGS)}: first loss {first}, final "
+        f"loss {final}, {wall:.2f} s of wall (start-up included)")
+    if not final < first:
+        raise AssertionError(f"launch.train: final loss {final} is not below "
+                             f"the first {first}")
+    return res
+
+
+def encdec_train_phase(model, params, seed: int) -> dict:
+    """Phase 12 (c): 2 steps of ``encdec_loss`` on SeamlessM4T-large-v2 at
+    full width and depth (B 4, a ragged prefix source mask over 512
+    frames, 256 target tokens, remat): finite losses, every leaf's gradient
+    norm above 0."""
+    import numpy as np
+    import torch
+
+    from repro_torch.training import AdamW, AdamWConfig
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = model.cfg
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 40)
+    batch = {"src_embeds": torch.randn(
+        (ENC_TRAIN_B, ENC_TRAIN_S, cfg.d_model), generator=g,
+        device=DEVICE).to(cfg.cdt),
+        "src_mask": torch.arange(ENC_TRAIN_S, device=DEVICE)[None]
+        < torch.as_tensor(ENC_TRAIN_LENS, device=DEVICE)[:, None],
+        "tgt_tokens": torch.randint(4, cfg.vocab_size - 8,
+                                    (ENC_TRAIN_B, ENC_TRAIN_T), generator=g,
+                                    device=DEVICE)}
+    opt = NormsThenAdamW(AdamW(AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                           total_steps=2)))
+    step = make_train_step(model, opt)
+    state = opt.opt.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(2):
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + i)
+        _, _, m = step(params, state, batch, gen=gen)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    least = min(min(n.values()) for n in opt.norms)
+    zero = sorted({k for n in opt.norms for k, v in n.items() if not v > 0})
+    res = {"arch": cfg.name, "B": ENC_TRAIN_B, "S_src": ENC_TRAIN_S,
+           "T": ENC_TRAIN_T, "src_lens": ENC_TRAIN_LENS, "losses": losses,
+           "step_s": times, "grad_norm_min": least, "zero_grad_leaves": zero,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log(f"train {cfg.name} (encdec, {cfg.n_enc_layers} + {cfg.n_layers} "
+        f"layers, B {ENC_TRAIN_B}, S_src {ENC_TRAIN_S} lengths "
+        f"{ENC_TRAIN_LENS}, T {ENC_TRAIN_T}): losses {losses}, steps "
+        f"{[round(t, 3) for t in times]} s, least leaf gradient norm "
+        f"{least:.3e}, max_memory_allocated {res['max_memory_allocated']} B")
+    del state
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"encdec training: non-finite loss {losses}")
+    if zero:
+        raise AssertionError(f"encdec training: leaves without a gradient: "
+                             f"{zero}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder family decoding (phase 13)
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENC_LENS = [1024, 17, 512, 700, 1, 333, 900, 256]
+ENC_S, DEC_LEN, DEC_C, DEC_WINDOWS = 1024, 256, 32, 8
+# The decoding phase holds the kernel path against the plain path (the
+# reference's flash_partial) at each attention call site of the first
+# layer, as in phase 11: the encoder's block-diffusion output, and the
+# decoder's self read and cross read (paged partials normalised as acc / l),
+# each under a limit its control (the kernel's output or acc x (1 +
+# CONTROL_SKEW)) must break.
+ENCDEC_LIMITS = {"enc_attn_rel": 0.015, "self_attn_rel": 0.015,
+                 "cross_attn_rel": 0.015}
+
+
+def encdec_phase(model, params, seed: int) -> dict:
+    """Phase 13: SeamlessM4T-large-v2 at full width and depth: ``admit`` 8
+    requests of random source frames (ENC_LENS, padded to 1024) through the
+    block-diffusion kernel, then DEC_WINDOWS block-pinned windows
+    (``chunk_forward`` at c 32 on mask tokens, the argmax committed,
+    ``freeze(n_adv = 32)``) reading the slot and cross caches through the
+    paged kernel; launch counts, the caches in place, finite logits; the
+    call-site checks and one window profiled."""
+    import torch
+
+    import repro_torch.models.encdec as encdec
+    from repro_torch.kernels import block_diffusion_attn as bda
+    from repro_torch.kernels import chunked_paged_attn as cpa
+
+    cfg = model.cfg
+    B = len(ENC_LENS)
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 30)
+    src = torch.randn((B, ENC_S, cfg.d_model), generator=g,
+                      device=DEVICE).to(cfg.cdt)
+    mask = torch.arange(ENC_S, device=DEVICE)[None] < torch.as_tensor(
+        ENC_LENS, device=DEVICE)[:, None]
+    cache = model.init_cache(B, DEC_LEN, ENC_S, dtype=torch.bfloat16,
+                             device=DEVICE)
+    names = ("k", "v", "cross_k", "cross_v")
+    ptrs = [cache[n].data_ptr() for n in names]
+    full = torch.full((B,), DEC_C, dtype=torch.int64, device=DEVICE)
+    win = torch.full((B, DEC_C), cfg.mask_token_id, dtype=torch.int64,
+                     device=DEVICE)
+
+    torch.cuda.synchronize()
+    cpa.LAUNCHES = cpa.MERGE_LAUNCHES = bda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    model.admit(params, cache, src, mask, impl="kernel")
+    torch.cuda.synchronize()
+    admit_ms = (time.perf_counter() - t0) * 1e3
+    bd_launches = bda.LAUNCHES
+    finite = torch.ones((), dtype=torch.bool, device=DEVICE)
+    committed = []
+    t0 = time.perf_counter()
+    for _ in range(DEC_WINDOWS):
+        start = cache["len"].long()
+        logits, kv = model.chunk_forward(params, cache, win, start, full,
+                                         impl="kernel")
+        finite &= torch.isfinite(logits).all()
+        committed.append(logits.argmax(-1))
+        model.freeze(cache, kv, start, full)
+    torch.cuda.synchronize()
+    windows_s = time.perf_counter() - t0
+    launches, merges = cpa.LAUNCHES, cpa.MERGE_LAUNCHES
+    finite = bool(finite)
+    res = {"arch": cfg.name, "layers": [cfg.n_enc_layers, cfg.n_layers],
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "head_dim": cfg.hd, "src_lens": ENC_LENS, "src_len": ENC_S,
+           "slot_len": DEC_LEN, "c": DEC_C, "windows": DEC_WINDOWS,
+           "admit_wall_ms": admit_ms, "windows_wall_s": windows_s,
+           "bd_kernel_launches": bd_launches, "kernel_launches": launches,
+           "merge_launches": merges, "finite_logits": finite,
+           "tokens_committed": B * DEC_C * DEC_WINDOWS}
+    log(f"encdec {cfg.name} ({cfg.n_enc_layers} + {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}): admission of {B} sources (lengths "
+        f"{ENC_LENS}, padded to {ENC_S}) {admit_ms:.2f} ms wall, "
+        f"{bd_launches} block-diffusion launches; {DEC_WINDOWS} windows of "
+        f"c {DEC_C} in {windows_s:.3f} s, {launches} paged launches ({merges}"
+        f" with a split merge); logits finite {finite}")
+
+    # the call-site checks: the encoder's first layer, and the first
+    # layer's self and cross reads of one more window (ctx 256) on the
+    # filled caches
+    enc_names = ("block_diffusion_attention", "flash_partial")
+    dec_names = ("paged_chunk_attention", "flash_partial")
+
+    def encode(impl):
+        return attention_outputs(lambda: model.encode(params, src, mask,
+                                                      impl=impl),
+                                 module=encdec, names=enc_names)
+
+    def window(impl):
+        return attention_outputs(lambda: model.chunk_forward(
+            params, cache, win, cache["len"].long(), full, impl=impl)[0],
+            module=encdec, names=dec_names)
+
+    with torch.no_grad():
+        e_plain, e_kernel = encode("ref"), encode("kernel")
+        w_plain, w_kernel = window("ref"), window("kernel")
+        exact_bd, exact_pa = encdec.block_diffusion_attention, \
+            encdec.paged_chunk_attention
+        encdec.block_diffusion_attention = \
+            lambda *a, **k: exact_bd(*a, **k) * (1 + CONTROL_SKEW)
+
+        def skewed(*a, **k):
+            acc, m, l = exact_pa(*a, **k)
+            return acc * (1 + CONTROL_SKEW), m, l
+
+        encdec.paged_chunk_attention = skewed
+        try:
+            e_ctl, w_ctl = encode("kernel"), window("kernel")
+        finally:
+            encdec.block_diffusion_attention = exact_bd
+            encdec.paged_chunk_attention = exact_pa
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    def readings(enc, win_run):
+        return {"enc_attn_rel": rel(enc[1][0], e_plain[1][0]),
+                "self_attn_rel": rel(win_run[1][0], w_plain[1][0]),
+                "cross_attn_rel": rel(win_run[1][1], w_plain[1][1]),
+                "enc_out_rel": float((enc[0].float() - e_plain[0].float())
+                                     .abs().max())
+                / float(e_plain[0].float().std()),
+                "logits_rel": float((win_run[0] - w_plain[0]).abs().max())
+                / float(w_plain[0].std()),
+                "tokens_differ_share": float(
+                    (win_run[0].argmax(-1) != w_plain[0].argmax(-1))
+                    .float().mean())}
+
+    sound, ctl = readings(e_kernel, w_kernel), readings(e_ctl, w_ctl)
+    res.update({"limits": ENCDEC_LIMITS, "kernel_vs_plain": sound,
+                "control_vs_plain": ctl})
+    for key in sound:
+        log(f"  {key}: kernel {sound[key]:.5f}  control (x "
+            f"{1 + CONTROL_SKEW}) {ctl[key]:.5f}  limit "
+            f"{ENCDEC_LIMITS.get(key, 'none (a reading)')}")
+
+    def dispatch(impl):
+        logits, _ = model.chunk_forward(params, cache, win,
+                                        cache["len"].long(), full, impl=impl)
+        return logits.argmax(-1).cpu()
+
+    res["profile"] = profile_dispatch(dispatch, "paged_chunk_attn", 5, 3)
+    log_profile(f"encdec window ({cfg.name}, B {B}, c {DEC_C}, ctx "
+                f"{DEC_LEN})", res["profile"], "paged")
+    n_attn = cfg.n_enc_layers
+    checks = [
+        (bd_launches == n_attn, f"{bd_launches} block-diffusion launches != "
+         f"{n_attn} encoder layers x 1 admission"),
+        (launches == 2 * cfg.n_layers * DEC_WINDOWS,
+         f"{launches} paged launches != 2 x {cfg.n_layers} x {DEC_WINDOWS} "
+         f"windows"),
+        (merges <= launches, f"{merges} merges > {launches} launches"),
+        (finite, "non-finite logits"),
+        ([cache[n].data_ptr() for n in names] == ptrs,
+         "the slot or cross cache moved"),
+        (bool((cache["len"] == DEC_LEN).all()), "a slot's len is not 256"),
+        (len(e_kernel[1]) == len(e_plain[1]) == cfg.n_enc_layers
+         and len(w_kernel[1]) == len(w_plain[1]) == 2 * cfg.n_layers,
+         "attention call counts disagree"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise AssertionError(f"encdec {cfg.name}: {msg}")
+    check_limits("encdec", sound, ctl, ENCDEC_LIMITS, tuple(ENCDEC_LIMITS))
+    return res
+
+
 def make_requests(cfg, seed: int, n: int, prompt: tuple, new: tuple):
     import numpy as np
 
@@ -2068,10 +2713,12 @@ def main() -> int:
         log(f"  ptxas: {r['kernel']}: {r['registers']} registers, "
             f"{r['spill_bytes']} bytes spilled")
 
+    log_phase("3: kernels")
     kern_rows = kernel_phase(args.seed)
     merge_res = merge_phase(args.seed)
     bd_rows = bd_kernel_phase(args.seed)
     torch.cuda.empty_cache()
+    log_phase("3b: MoE layer")
     moe_rows = moe_layer_phase(args.seed)
 
     def draw(cfg):
@@ -2100,6 +2747,7 @@ def main() -> int:
     elastic_reqs = lambda cfg: make_requests(  # noqa: E731
         cfg, args.seed, 8, (128, 512), (64, 128))
 
+    log_phase("4-7: SDAR-8B")
     cfg = get_config("sdar-8b")
     model, params = draw(cfg)
     pool = make_pool(model, args.seed)
@@ -2122,6 +2770,7 @@ def main() -> int:
     del model, params
     free("sdar-8b")
 
+    log_phase("8: Llama-4 Scout")
     # Llama-4 Scout at full width, MOE_LAYERS deep (the card's 80 GB)
     cfg = get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS)
     model, params = draw(cfg)
@@ -2134,6 +2783,7 @@ def main() -> int:
     del model, params
     free(cfg.name)
 
+    log_phase("9: Qwen2-VL-2B")
     # Qwen2-VL-2B at full width and depth, text only
     cfg = get_config("qwen2-vl-2b")
     model, params = draw(cfg)
@@ -2148,6 +2798,7 @@ def main() -> int:
     for r in runs:
         del r["outputs"], r["gaps"]
 
+    log_phase("10: RWKV6-1.6B")
     # RWKV6-1.6B at full width and depth (the ssm family, AR)
     cfg = get_config(SSM_ARCH)
     model, params = draw(cfg)
@@ -2157,6 +2808,7 @@ def main() -> int:
     del model, params
     free(cfg.name)
 
+    log_phase("11: Jamba")
     # Jamba at full width, one period with 10 experts (the hybrid family)
     cfg = get_config(HYBRID_ARCH).replace(**HYBRID_CUTS)
     log(f"{cfg.name}: full width (d_model {cfg.d_model}, {cfg.n_heads}/"
@@ -2170,14 +2822,43 @@ def main() -> int:
     del model, params
     free(cfg.name)
 
+    log_phase("12: training")
+    # phase 12: training on the card (SDAR-8B-4L, the launcher, encdec)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        train_res = train_phase(args.seed, workdir)
+        free(f"{TRAIN_ARCH} training")
+        launcher_res = launcher_phase(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    cfg = get_config(ENCDEC_ARCH)
+    model, params = draw(cfg)
+    enc_train_res = encdec_train_phase(model, params, args.seed)
+    del model, params
+    free(f"{cfg.name} training")
+
+    log_phase("13: SeamlessM4T decoding")
+    # phase 13: SeamlessM4T-large-v2 decoding at full width and depth
+    model, params = draw(cfg)
+    encdec_res = encdec_phase(model, params, args.seed)
+    del model, params
+    free(cfg.name)
+
+    log_phase("done")
     head = kern_rows[0]
     kernels = [{
         "name": "paged_chunk_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/chunked_paged_attn.cu",
         "replaces": "src/repro/kernels/chunked_paged_attn.py:85",
-        "launches": sum(r["kernel_launches"] for r in runs),
-        "merge_launches": sum(r["merge_launches"] for r in runs),
+        "launches": sum(r["kernel_launches"] for r in runs)
+        + encdec_res["kernel_launches"],
+        "merge_launches": sum(r["merge_launches"] for r in runs)
+        + encdec_res["merge_launches"],
+        "launches_by_site": {"serving runs": sum(r["kernel_launches"]
+                                                 for r in runs),
+                             "encdec decoder reads":
+                                 encdec_res["kernel_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -2190,7 +2871,12 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_diffusion_attn.cu",
         "replaces": "src/repro/kernels/block_diffusion_attn.py:86",
-        "launches": sum(r["bd_kernel_launches"] for r in runs),
+        "launches": sum(r["bd_kernel_launches"] for r in runs)
+        + encdec_res["bd_kernel_launches"],
+        "launches_by_site": {"serving runs": sum(r["bd_kernel_launches"]
+                                                 for r in runs),
+                             "encdec encoder":
+                                 encdec_res["bd_kernel_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in bd_rows),
         "ms": bd_rows[0]["ms"], "plain_ms": bd_rows[0]["plain_ms"],
         "bound_ms": bd_rows[0]["bound_ms"],
@@ -2208,7 +2894,9 @@ def main() -> int:
              "model": model_res, "profile": profile_res,
              "prefill_model": prefill_res, "moe_model": moe_model_res,
              "ssm": ssm_res, "hybrid": hybrid_res, "serve": runs,
-             "wave_vs_chunked": wave_vs_chunked}, indent=1))
+             "wave_vs_chunked": wave_vs_chunked, "train": train_res,
+             "launcher": launcher_res, "encdec_train": enc_train_res,
+             "encdec": encdec_res}, indent=1))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -64,7 +64,8 @@ def block_diffusion_attention_kernel(q, k, v, lengths, *, block_size: int,
                                      scale: float | None = None,
                                      body: str = "auto"):
     """Launch the CUDA kernel (CUDA tensors only; raises on anything the
-    kernel does not take — no fallback).
+    kernel does not take — no fallback — and on inputs that require grad
+    while autograd records, since the kernel has no backward pass).
 
     q [B,T,H,D]; k/v [B,T,KVH,D], contiguous, same dtype as q (float32 or
     bfloat16), D in HEAD_DIMS, H a multiple of KVH; lengths [B] integer.
@@ -78,6 +79,11 @@ def block_diffusion_attention_kernel(q, k, v, lengths, *, block_size: int,
     global LAUNCHES
     B, T, H, D = q.shape
     _check(q.is_cuda, "q must be a CUDA tensor")
+    _check(not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in (q, k, v))),
+           "an input requires grad and the kernel has no backward pass: "
+           "differentiate the plain route (block_diffusion_ref, or "
+           "TransformerLM.apply(impl=\"train\"))")
     for name, t in (("k", k), ("v", v), ("lengths", lengths)):
         _check(t.device == q.device, f"{name} is on {t.device}, q on "
                f"{q.device}")

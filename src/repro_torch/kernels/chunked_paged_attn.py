@@ -95,7 +95,8 @@ def paged_chunk_attention_kernel(q, k_pages, v_pages, block_tables, ctx_lens,
                                  body: str = "auto", splits: int = 0,
                                  rows_per_warp: int = 0):
     """Launch the CUDA kernel (CUDA tensors only; raises on anything the
-    kernel does not take — no fallback).
+    kernel does not take — no fallback — and on inputs that require grad
+    while autograd records, since the kernel has no backward pass).
 
     q [B,c,H,D]; k_pages/v_pages [P,ps,KVH,D], contiguous (a per-layer
     ``pool[l]`` view qualifies), same dtype as q (float32 or bfloat16),
@@ -114,6 +115,11 @@ def paged_chunk_attention_kernel(q, k_pages, v_pages, block_tables, ctx_lens,
     P, ps, KVH, Dk = k_pages.shape
     n_slots = block_tables.shape[1]
     _check(q.is_cuda, "q must be a CUDA tensor")
+    _check(not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in (q, k_pages, v_pages))),
+           "an input requires grad and the kernel has no backward pass: "
+           "differentiate the plain route (paged_chunk_ref, or the models' "
+           "impl=\"ref\")")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
                     ("block_tables", block_tables), ("ctx_lens", ctx_lens)):
         _check(t.device == q.device, f"{name} is on {t.device}, q on "

@@ -1,5 +1,6 @@
-"""Core neural-net layers: RMSNorm, RoPE / M-RoPE, GQA attention partials,
-gated MLP.
+"""Core neural-net layers: RMSNorm, RoPE / M-RoPE, GQA attention (the
+plain and flash-style differentiable paths of training, and the partials
+the serving paths combine), gated MLP.
 
 Plain functions on tensors; parameters come from the flat param dict
 (one layer's slice, keyed by the name under ``mixer/`` or ``ffn/``).  The
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.models.common import ArchConfig, dense_init
 
@@ -35,6 +37,44 @@ def init_norm(gen, cfg: ArchConfig, device, n: int | None = None):
     if torch.device(device).type == "meta":
         return {"scale": torch.empty(shape, dtype=cfg.pdt, device="meta")}
     return {"scale": torch.ones(shape, dtype=cfg.pdt, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Token embedding
+# ---------------------------------------------------------------------------
+
+class _EmbedLookup(torch.autograd.Function):
+    """``table[tokens]``, whose backward sums the rows' gradients in fp32
+    or wider, then rounds once to the table's dtype.  A diffusion batch
+    feeds the mask token at about half its positions, so its row sums
+    thousands of gradients: summed in bf16 they lose whole percents (on an
+    H100, SDAR-8B-4L's 2 microbatches and 1 differed by 26% on that row)."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (tokens,) = ctx.saved_tensors
+        acc = torch.zeros(ctx.table_shape, device=grad.device,
+                          dtype=torch.promote_types(grad.dtype,
+                                                    torch.float32))
+        acc.index_put_((tokens.reshape(-1),),
+                       grad.reshape(-1, grad.shape[-1]).to(acc.dtype),
+                       accumulate=True)
+        return acc.to(ctx.table_dtype), None
+
+
+def embed_lookup(table, tokens):
+    """Rows of ``table`` [V, d] at ``tokens`` [...] → [..., d]; under
+    autograd the table's gradient is summed in fp32."""
+    tokens = tokens.long()
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _EmbedLookup.apply(table, tokens)
+    return table[tokens]
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +208,187 @@ def sdpa_partial(q, k, v, mask, *, scale: float | None = None):
     return acc, m, l
 
 
+def sdpa(q, k, v, mask, *, scale: float | None = None):
+    """Grouped-query scaled dot-product attention, normalised: q [B,T,H,D],
+    k/v [B,S,KVH,D], mask bool [B,1,T,S] → [B,T,H,D] in q's dtype.  fp32
+    logits and softmax; the probabilities are rounded to q's dtype before
+    PV, as in the JAX package."""
+    B, T, H, D = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    scale = scale if scale is not None else 1.0 / np.sqrt(D)
+    qg = q.reshape(B, T, KVH, G, D)
+    logits = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float()) * scale
+    logits = torch.where(mask[:, :, None, :, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgts,bskd->btkgd", probs.to(q.dtype), v.to(q.dtype))
+    return out.reshape(B, T, H, D)
+
+
+def _kind_mask(kind: str, qp, kp, block_size: int):
+    """qp [B,tq], kp [B,tk] → bool [B,tq,tk]."""
+    if kind == "all":
+        return torch.ones((qp.shape[0], qp.shape[1], kp.shape[1]),
+                          dtype=torch.bool, device=qp.device)
+    if kind == "causal":
+        return causal_mask(qp, kp)
+    if kind == "block_causal":
+        return block_causal_mask(qp, kp, block_size)
+    raise ValueError(kind)
+
+
+def _checkpointed(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (the torch form of
+    ``jax.checkpoint``: activations are recomputed in the backward pass)
+    when autograd records this call, plainly otherwise."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def _online_step(acc, m, l, qi, ki, vi, msk, scale):
+    """One online-softmax step of a flash scan: fold the keys ``ki``/``vi``
+    [B,kc,KVH,D] into the running partial (acc [B,KVH,G,qc,D], m and l
+    [B,KVH,G,qc]) of the queries ``qi`` [B,qc,KVH,G,D] under ``msk``
+    [B,qc,kc]."""
+    logits = torch.einsum("btkgd,bskd->bkgts", qi.float(), ki.float()) * scale
+    msk = msk[:, None, None, :, :]
+    logits = torch.where(msk, logits, NEG_INF)
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    corr = torch.exp(m - m_new)
+    e = torch.where(msk, torch.exp(logits - m_new[..., None]), 0.0)
+    l = l * corr + e.sum(dim=-1)
+    pv = torch.einsum("bkgts,bskd->bkgtd", e.to(vi.dtype).float(), vi.float())
+    return acc * corr[..., None] + pv, m_new, l
+
+
+def _pad_seq(x, n: int):
+    """Pad dim 1 of ``x`` with zeros (False) to length ``n``."""
+    if x.shape[1] == n:
+        return x
+    pad = torch.zeros((x.shape[0], n - x.shape[1]) + tuple(x.shape[2:]),
+                      dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], dim=1)
+
+
+def _partials_out(accs, ms, ls, B, T, H, D):
+    """Per-query-chunk partials ([B,KVH,G,qc,D], [B,KVH,G,qc]) in chunk
+    order → acc [B,T,H,D], m and l [B,T,H]."""
+    acc = torch.stack(accs, 1).permute(0, 1, 4, 2, 3, 5)
+    m = torch.stack(ms, 1).permute(0, 1, 4, 2, 3)
+    l = torch.stack(ls, 1).permute(0, 1, 4, 2, 3)
+    n = acc.shape[1] * acc.shape[2]
+    return (acc.reshape(B, n, H, D)[:, :T], m.reshape(B, n, H)[:, :T],
+            l.reshape(B, n, H)[:, :T])
+
+
+def flash_partial(q, k, v, *, q_pos, k_pos, k_valid, kind="causal",
+                  block_size: int = 0, q_chunk: int = 512,
+                  kv_chunk: int = 1024, scale: float | None = None):
+    """Memory-efficient (flash-style) partial attention in plain torch:
+    query chunks × KV chunks with an online softmax, the mask built per
+    chunk from positions, each KV step under :func:`_checkpointed` (the
+    reference's ``jax.checkpoint``), so it is differentiable at
+    O(q_chunk · kv_chunk) memory.
+
+    q [B,T,H,D]; k/v [B,S,KVH,D]; q_pos [B,T]; k_pos [B,S]; k_valid [B,S].
+    Returns acc [B,T,H,D] fp32, m/l [B,T,H] fp32.
+    """
+    B, T, H, D = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    scale = scale if scale is not None else 1.0 / np.sqrt(D)
+    qc, kc = min(q_chunk, T), min(kv_chunk, S)
+    Tp, Sp = -(-T // qc) * qc, -(-S // kc) * kc
+    q, q_pos = _pad_seq(q, Tp), _pad_seq(q_pos, Tp)
+    k, v = _pad_seq(k, Sp), _pad_seq(v, Sp)
+    k_pos, k_valid = _pad_seq(k_pos, Sp), _pad_seq(k_valid, Sp)
+    qs = q.reshape(B, Tp // qc, qc, KVH, G, D)
+
+    def kv_step(acc, m, l, qi, qpi, ki, vi, kpi, kvi):
+        msk = _kind_mask(kind, qpi, kpi, block_size) & kvi[:, None, :]
+        return _online_step(acc, m, l, qi, ki, vi, msk, scale)
+
+    accs, ms, ls = [], [], []
+    for i in range(Tp // qc):
+        qi, qpi = qs[:, i], q_pos[:, i * qc:(i + 1) * qc]
+        acc = torch.zeros((B, KVH, G, qc, D), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((B, KVH, G, qc), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, KVH, G, qc), dtype=torch.float32, device=q.device)
+        for j in range(Sp // kc):
+            sl = slice(j * kc, (j + 1) * kc)
+            acc, m, l = _checkpointed(kv_step, acc, m, l, qi, qpi, k[:, sl],
+                                      v[:, sl], k_pos[:, sl], k_valid[:, sl])
+        accs.append(acc)
+        ms.append(m)
+        ls.append(l)
+    return _partials_out(accs, ms, ls, B, T, H, D)
+
+
+def flash_partial_aligned(q, k, v, *, lengths, kind="causal",
+                          block_size: int = 0, chunk: int = 512,
+                          scale: float | None = None):
+    """Triangular flash attention for position-aligned full sequences
+    (positions 0..T-1): only the nq(nq+1)/2 (q-chunk, kv-chunk) pairs on
+    or below the diagonal run, each under :func:`_checkpointed`.  The chunk
+    is cut to a multiple of ``block_size`` so no diffusion block straddles
+    two chunks; a T that is not a multiple of the chunk falls back to
+    :func:`flash_partial`.  ``kind`` "block_causal" is block-causal, any
+    other kind causal.  Returns flash partials (acc fp32 [B,T,H,D], m, l
+    [B,T,H])."""
+    B, T, H, D = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    scale = scale if scale is not None else 1.0 / np.sqrt(D)
+    chunk = min(chunk, T)
+    if block_size:
+        chunk = max(chunk - chunk % block_size, block_size)
+    if T % chunk != 0:
+        pos = torch.arange(T, dtype=torch.int64, device=q.device)
+        pos = pos[None].expand(B, T)
+        return flash_partial(q, k, v, q_pos=pos, k_pos=pos,
+                             k_valid=pos < lengths[:, None].to(q.device),
+                             kind=kind, block_size=block_size, scale=scale)
+    nq = T // chunk
+    qs = q.reshape(B, nq, chunk, KVH, G, D)
+    ks = k.reshape(B, nq, chunk, KVH, D)
+    vs = v.reshape(B, nq, chunk, KVH, D)
+    offs = torch.arange(chunk, dtype=torch.int64, device=q.device)
+    lens = lengths.to(device=q.device, dtype=torch.int64)
+
+    def step(acc, m, l, qb, kb, vb, qi: int, ki: int):
+        qpos = qi * chunk + offs[:, None]
+        kpos = ki * chunk + offs[None, :]
+        if kind == "block_causal":
+            ok = torch.div(kpos, block_size, rounding_mode="floor") <= \
+                torch.div(qpos, block_size, rounding_mode="floor")
+        else:
+            ok = kpos <= qpos
+        ok = ok[None] & ((ki * chunk + offs)[None, None, :]
+                         < lens[:, None, None])
+        return _online_step(acc, m, l, qb, kb, vb, ok, scale)
+
+    accs, ms, ls = [], [], []
+    for qi in range(nq):
+        acc = torch.zeros((B, KVH, G, chunk, D), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((B, KVH, G, chunk), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, KVH, G, chunk), dtype=torch.float32,
+                        device=q.device)
+        for ki in range(qi + 1):
+            acc, m, l = _checkpointed(step, acc, m, l, qs[:, qi], ks[:, ki],
+                                      vs[:, ki], qi, ki)
+        accs.append(acc)
+        ms.append(m)
+        ls.append(l)
+    return _partials_out(accs, ms, ls, B, T, H, D)
+
+
 def combine_partials(parts, out_dtype):
     """Combine flash partials [(acc, m, l), ...] into normalized output
     (shared implementation: :func:`repro_torch.kernels.ops.combine_flash_partials`)."""
@@ -178,6 +399,14 @@ def combine_partials(parts, out_dtype):
 def attn_output(p, cfg: ArchConfig, out):
     B, T = out.shape[:2]
     return out.reshape(B, T, -1) @ p["wo"].to(cfg.cdt)
+
+
+def attention_block(p, cfg: ArchConfig, x, positions, mask):
+    """Self-attention over ``x`` [B,T,d] under ``mask`` [B,1,T,T] (plain
+    :func:`sdpa`).  Returns (y [B,T,d], (k, v))."""
+    q, k, v = qkv_project(p, cfg, x, positions)
+    out = sdpa(q, k, v, mask)
+    return attn_output(p, cfg, out), (k, v)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,7 @@ protocol, math, dtypes and rounding points:
 * ``*_seq(params, cfg, x, state)`` — process ``x [B,T,d]`` given an incoming
   recurrent state, return ``(y [B,T,d], new_state)``.  Used by prefill,
   the diffusion-window recompute (T = chunk size) and AR decode (T = 1).
-* fresh states from ``*_init_state(cfg, batch)``.
+* fresh states from ``*_init_state(cfg, batch, device=...)``.
 
 The recurrences (:func:`selective_scan`, :func:`wkv_scan`) run as a plain
 Python loop over T, sequential and in fp32, as the reference's ``lax.scan``
@@ -67,8 +67,8 @@ def init_mamba(gen, cfg: ArchConfig, device, n: int):
     }
 
 
-def mamba_init_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
-                     device="cpu"):
+def mamba_init_state(cfg: ArchConfig, batch: int, dtype=torch.float32, *,
+                     device):
     di, _ = mamba_dims(cfg)
     return {
         "conv": torch.zeros((batch, cfg.d_conv - 1, di), dtype=dtype,
@@ -165,8 +165,8 @@ def init_rwkv_chanmix(gen, cfg: ArchConfig, device, n: int):
     }
 
 
-def rwkv_init_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
-                    device="cpu"):
+def rwkv_init_state(cfg: ArchConfig, batch: int, dtype=torch.float32, *,
+                    device):
     hn, hd = cfg.rwkv_n_heads, cfg.rwkv_head_dim
     return {
         "tm_prev": torch.zeros((batch, cfg.d_model), dtype=dtype,

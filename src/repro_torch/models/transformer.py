@@ -30,7 +30,12 @@ recurrent ``states``):
 
 Self-attention over a whole position-aligned sequence (``apply``,
 ``prefill``, ``prefill_paged``) is one block-diffusion call a layer (block
-1 is causal, a block of T or more bidirectional).  A window reads its
+1 is causal, a block of T or more bidirectional).  ``apply(impl="train")``
+is the training route instead: the reference's differentiable flash scans
+(``flash_partial_aligned`` for causal and block-causal masks,
+``flash_partial`` for bidirectional ones), each layer under
+``torch.utils.checkpoint`` when ``cfg.remat`` is set; it reaches no hand
+kernel, since neither has a backward pass.  A window reads its
 prefix through the paged kernel: the page pool through block tables, or
 the slot cache as B pages of S tokens (``block_tables = arange(B)``,
 ``ctx_lens = len``); the partial is combined exactly with the in-window
@@ -56,8 +61,10 @@ from repro_torch.kernels.ops import (block_diffusion_attention,
 from repro_torch.kernels.ref import block_diffusion_ref, paged_chunk_ref
 from repro_torch.models import ssm
 from repro_torch.models.common import ArchConfig, dense_init, embed_init
-from repro_torch.models.layers import (attn_output, block_causal_mask,
-                                       causal_mask, combine_partials,
+from repro_torch.models.layers import (_checkpointed, attn_output,
+                                       block_causal_mask, causal_mask,
+                                       combine_partials, embed_lookup,
+                                       flash_partial, flash_partial_aligned,
                                        init_attention, init_mlp, init_norm,
                                        mlp_block, qkv_project, rms_norm,
                                        sdpa_partial)
@@ -145,8 +152,9 @@ class TransformerLM:
 
     def __init__(self, cfg: ArchConfig):
         if cfg.family not in self.FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported to repro_torch yet")
+            raise ValueError(f"TransformerLM does not take family "
+                             f"{cfg.family!r} (build_model builds the "
+                             f"encdec family as EncDecLM)")
         self.cfg = cfg
         if cfg.family == "hybrid":
             if not (cfg.attn_period > 0
@@ -220,7 +228,7 @@ class TransformerLM:
         """Token embeddings [B,T,d]; where ``mm_mask`` [B,T] is set, the
         precomputed multimodal embeddings ``mm_embeds`` [B,T,d] instead."""
         cd = self.cfg.cdt
-        x = params["embed"][tokens.long()].to(cd)
+        x = embed_lookup(params["embed"], tokens).to(cd)
         if mm_embeds is not None:
             x = torch.where(mm_mask[..., None].to(x.device),
                             mm_embeds.to(device=x.device, dtype=cd), x)
@@ -240,7 +248,9 @@ class TransformerLM:
         ``shared``:
 
         * ``"self_flash"``: attention over the whole position-aligned
-          sequence, one block-diffusion call; no cache is read.
+          sequence, one block-diffusion call; no cache is read.  Under
+          ``impl == "train"`` the reference's flash scans instead
+          (``_mixer_apply``'s ``self_flash`` branch).
         * otherwise: the prefix partial — the slot cache (``lx["cache_k"]``,
           keys ``< cache_len``) or the page pool (``lx["page_k"]``) through
           the paged kernel — combined exactly with the in-window partial.
@@ -251,6 +261,22 @@ class TransformerLM:
         ref = shared["impl"] == "ref"
         q, k, v = qkv_project(p, cfg, x, positions)
         sf = shared.get("self_flash")
+        if sf is not None and shared["impl"] == "train":
+            lengths = sf["lengths"]
+            if sf["kind"] in ("causal", "block_causal"):
+                part = flash_partial_aligned(q, k, v, lengths=lengths,
+                                             kind=sf["kind"],
+                                             block_size=cfg.block_size)
+            else:
+                pos = positions if positions.dim() == 2 else positions[:, 0]
+                T = pos.shape[1]
+                part = flash_partial(
+                    q, k, v, q_pos=pos, k_pos=pos,
+                    k_valid=torch.arange(T, device=pos.device)[None, :]
+                    < lengths[:, None], kind=sf["kind"],
+                    block_size=cfg.block_size)
+            out = combine_partials([part], x.dtype)
+            return attn_output(p, cfg, out), (k, v)
         if sf is not None:
             fn = block_diffusion_ref if ref else block_diffusion_attention
             out = fn(q, k, v, sf["lengths"], block_size=sf["block_size"])
@@ -285,34 +311,23 @@ class TransformerLM:
         and their v) and recurrent states (``"state"``: {name: tensor}).
         Returns (x, kvs, states): kvs ``{"pos{j}": (k, v)}`` stacked
         [n_periods, B, T, KVH, hd], states ``{"pos{j}"|"ffn{j}": {name:
-        [n_periods, …]}}``."""
-        cfg = self.cfg
-        kinds = self._positions()
+        [n_periods, …]}}``.  On the training route with ``cfg.remat``
+        each period runs under ``torch.utils.checkpoint`` (the reference's
+        ``jax.checkpoint`` of the scan body)."""
+        remat = self.cfg.remat and shared["impl"] == "train"
         kv_out, st_out = {}, {}
         for l in range(self.n_periods):
-            for j, (mixer, ffn) in enumerate(kinds):
-                lx = per_layer.get(f"pos{j}", {})
-                pre = f"blocks/pos{j}/"
-                h = rms_norm(x, params[f"{pre}norm1/scale"][l], cfg.norm_eps)
-                p = self._sub(params, j, "mixer", l)
-                if mixer == "attn":
-                    y, kv = self._attn(p, h, positions, shared, lx, l)
-                    kv_out.setdefault(f"pos{j}", []).append(kv)
-                else:
-                    seq = ssm.mamba_seq if mixer == "mamba" \
-                        else ssm.rwkv_timemix
-                    y, st = seq(p, cfg, h, _layer(lx["state"], l))
-                    st_out.setdefault(f"pos{j}", []).append(st)
-                x = x + y
-                h = rms_norm(x, params[f"{pre}norm2/scale"][l], cfg.norm_eps)
-                p = self._sub(params, j, "ffn", l)
-                if ffn == "rwkv_cm":
-                    y, st = ssm.rwkv_chanmix(
-                        p, cfg, h, _layer(per_layer[f"ffn{j}"]["state"], l))
-                    st_out.setdefault(f"ffn{j}", []).append(st)
-                else:
-                    y = self._ffn_apply(ffn, p, h)
-                x = x + y
+            if remat:
+                x, kvs, sts = _checkpointed(
+                    lambda x, l=l: self._period(params, x, positions, shared,
+                                                per_layer, l), x)
+            else:
+                x, kvs, sts = self._period(params, x, positions, shared,
+                                           per_layer, l)
+            for key, kv in kvs.items():
+                kv_out.setdefault(key, []).append(kv)
+            for key, st in sts.items():
+                st_out.setdefault(key, []).append(st)
         kvs = {key: (torch.stack([k for k, _ in kv]),
                      torch.stack([v for _, v in kv]))
                for key, kv in kv_out.items()}
@@ -320,6 +335,33 @@ class TransformerLM:
                         for name in sts[0]}
                   for key, sts in st_out.items()}
         return x, kvs, states
+
+    def _period(self, params, x, positions, shared, per_layer, l: int):
+        """Period ``l`` of the layer stack → (x, {"pos{j}": (k, v)},
+        {"pos{j}"|"ffn{j}": state})."""
+        cfg = self.cfg
+        kv_out, st_out = {}, {}
+        for j, (mixer, ffn) in enumerate(self._positions()):
+            lx = per_layer.get(f"pos{j}", {})
+            pre = f"blocks/pos{j}/"
+            h = rms_norm(x, params[f"{pre}norm1/scale"][l], cfg.norm_eps)
+            p = self._sub(params, j, "mixer", l)
+            if mixer == "attn":
+                y, kv_out[f"pos{j}"] = self._attn(p, h, positions, shared,
+                                                  lx, l)
+            else:
+                seq = ssm.mamba_seq if mixer == "mamba" else ssm.rwkv_timemix
+                y, st_out[f"pos{j}"] = seq(p, cfg, h, _layer(lx["state"], l))
+            x = x + y
+            h = rms_norm(x, params[f"{pre}norm2/scale"][l], cfg.norm_eps)
+            p = self._sub(params, j, "ffn", l)
+            if ffn == "rwkv_cm":
+                y, st_out[f"ffn{j}"] = ssm.rwkv_chanmix(
+                    p, cfg, h, _layer(per_layer[f"ffn{j}"]["state"], l))
+            else:
+                y = self._ffn_apply(ffn, p, h)
+            x = x + y
+        return x, kv_out, st_out
 
     def _collect_kv(self, kvs):
         """kvs from the stack → {"k", "v"} [L_attn, B, T, KVH, hd] (attention
@@ -360,37 +402,38 @@ class TransformerLM:
     # ------------------------------------------------------------------
     # Recurrent-state helpers
     # ------------------------------------------------------------------
-    def _fresh_states(self, kind, B, dtype, device):
+    def _fresh_states(self, kind, B, dtype, *, device):
         """Zero states of every period for one recurrent position: mamba
         ``conv`` and rwkv ``tm_prev``/``cm_prev`` at ``dtype``, ``ssm`` and
         ``wkv`` fp32 (the rwkv state split across its two positions)."""
         cfg = self.cfg
         if kind == "mamba":
-            st = ssm.mamba_init_state(cfg, B, dtype, device)
+            st = ssm.mamba_init_state(cfg, B, dtype, device=device)
         elif kind == "rwkv_tm":
-            st = ssm.rwkv_init_state(cfg, B, dtype, device)
+            st = ssm.rwkv_init_state(cfg, B, dtype, device=device)
             st = {"tm_prev": st["tm_prev"], "wkv": st["wkv"]}
         elif kind == "rwkv_cm":
             st = {"cm_prev": ssm.rwkv_init_state(cfg, B, dtype,
-                                                 device)["cm_prev"]}
+                                                 device=device)["cm_prev"]}
         else:
             raise ValueError(kind)
         n = self.n_periods
         return {k: v[None].repeat((n,) + (1,) * v.dim())
                 for k, v in st.items()}
 
-    def _state_xs(self, B, dtype, cache=None, device="cpu"):
-        """Per-position recurrent-state inputs: fresh, or the cache's."""
+    def _state_xs(self, B, dtype, cache=None, *, device):
+        """Per-position recurrent-state inputs: fresh on ``device``, or the
+        cache's."""
         out = {}
         for j, (mixer, ffn) in enumerate(self._positions()):
             if mixer in ("mamba", "rwkv_tm"):
                 out[f"pos{j}"] = {"state": cache["states"][f"pos{j}"] if cache
                                   else self._fresh_states(mixer, B, dtype,
-                                                          device)}
+                                                          device=device)}
             if ffn == "rwkv_cm":
                 out[f"ffn{j}"] = {"state": cache["states"][f"ffn{j}"] if cache
                                   else self._fresh_states("rwkv_cm", B, dtype,
-                                                          device)}
+                                                          device=device)}
         return out
 
     def _cache_xs(self, cache):
@@ -403,7 +446,8 @@ class TransformerLM:
     def _recurrent_xs(self, cache, B):
         return {**self._cache_xs(cache),
                 **self._state_xs(B, self.cfg.cdt, cache=cache
-                                 if "states" in cache else None)}
+                                 if "states" in cache else None,
+                                 device=cache["len"].device)}
 
     # ------------------------------------------------------------------
     # Dense-slot entry points
@@ -412,21 +456,28 @@ class TransformerLM:
               lengths=None, mm_embeds=None, mm_mask=None, *,
               impl: str = "kernel"):
         """Full forward → logits [B,T,V] fp32.  ``mask_mode``: causal,
-        block_causal or bidirectional, over keys ``< lengths``."""
+        block_causal or bidirectional, over keys ``< lengths``; positions
+        [B, T], or [B, 3, T] for M-RoPE (they reach only the rotary
+        embedding: the mask is over the aligned positions 0..T-1, as in the
+        reference).
+
+        ``impl``: "kernel" (one block-diffusion kernel call a layer on CUDA
+        tensors, its plain version on CPU ones), "ref" (the plain version),
+        or "train", the training route (the reference's differentiable
+        flash scans, no hand kernel; remat when ``cfg.remat``)."""
+        if impl not in ("kernel", "ref", "train"):
+            raise ValueError(f"unknown impl {impl!r}")
         B, T = tokens.shape
         dev = tokens.device
         if positions is None:
             positions = torch.arange(T, dtype=torch.int64,
                                      device=dev)[None].expand(B, T)
-        if positions.dim() != 2:
-            raise NotImplementedError(
-                "apply with [B, 3, T] M-RoPE positions takes the reference's "
-                "non-aligned flash path, which only vlm training runs: it "
-                "belongs to the training slice, not ported yet")
         if lengths is None:
             lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
         shared = {"impl": impl, "self_flash": {
             "lengths": lengths.to(device=dev, dtype=torch.int32),
+            "kind": {"causal": "causal", "block_causal": "block_causal",
+                     "bidirectional": "all"}[mask_mode],
             "block_size": self._flash_block(mask_mode, self.cfg.block_size,
                                             T)}}
         x = self.embed(params, tokens, mm_embeds, mm_mask)

@@ -27,6 +27,9 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert "repro_torch.kernels.chunked_paged_attn" in mods
     assert "repro_torch.launch.serve" in mods
+    for name in ("repro_torch.training.train_loop", "repro_torch.launch.train",
+                 "repro_torch.models.encdec", "repro_torch.common.faults"):
+        assert name in mods
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -58,6 +61,37 @@ def test_no_jax_or_reference_imports(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
             f"{path.relative_to(ROOT)} imports {name}"
+
+
+def test_trains_and_decodes_encdec_on_cpu_without_jax(tmp_path):
+    """The training launcher (3 steps of the default SMOKE config) and one
+    encdec admission and window run with jax and the JAX package
+    blocked."""
+    code = ("import sys, torch\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "from repro_torch.launch import train\n"
+            "losses = train.main(['--smoke', '--torch-device', 'cpu',\n"
+            "                     '--steps', '3', '--seq', '16', '--batch',\n"
+            f"                     '2', '--ckpt-dir', {str(tmp_path)!r}])\n"
+            "from repro_torch.configs import get_smoke_config\n"
+            "from repro_torch.models import build_model\n"
+            "m = build_model(get_smoke_config('seamless-m4t-large-v2'))\n"
+            "p = m.init_params(device='cpu')\n"
+            "c = m.init_cache(2, 16, 8, dtype=torch.float32, device='cpu')\n"
+            "m.admit(p, c, torch.randn(2, 8, m.cfg.d_model),\n"
+            "        torch.arange(8)[None] < torch.tensor([[8], [3]]))\n"
+            "lg, kv = m.chunk_forward(p, c, torch.full((2, 4), 3),\n"
+            "                         c['len'].long(), torch.full((2,), 4))\n"
+            "assert torch.isfinite(lg).all()\n"
+            "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
+            "print('ok', len(losses))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "ok 3" in out.stdout
 
 
 def test_serves_on_cpu_without_jax():

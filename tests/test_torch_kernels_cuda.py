@@ -8,9 +8,12 @@ wrapper picks, the CUDA-core body, and (paged, bf16) the tensor-core body
 with one split and with eight.  The moe and vlm families' shapes (Llama-4
 Scout, Qwen2-VL-2B, Kimi K2: GQA groups 5 and 6, head dim 112; chip_smoke.py
 shapes (i)-(n)) and the hybrid's (Jamba: the slot view, one page of 640
-tokens a request, and the padded [1, 640] prefill; shapes (o) and (p)) run
-in bf16 under both bodies, the paged ones at the picked split count and at
-one split.
+tokens a request, and the padded [1, 640] prefill; shapes (o) and (p)),
+and the encoder–decoder's (SeamlessM4T: G 1, head_dim 64, the decoder's
+slot and cross caches read as slot views and the bidirectional encoder;
+shapes (q)-(s)) run in bf16 under both bodies, the paged ones at the picked
+split count and at one split.  Both wrappers raise on inputs that require
+grad.
 
 Tolerances as tests/test_kernels.py: fp32 2e-5 / bf16 3e-2 relative on acc,
 m within rtol 1e-5 / atol 1e-4; the block-diffusion output within 2e-5 /
@@ -159,6 +162,72 @@ def test_kernel_on_slot_view_matches_plain_version(cuda):
     assert torch.all(acc[0] == 0) and torch.all(l[0] == 0)
 
 
+SOURCE_LENS = [1024, 17, 512, 700, 1, 333, 900, 256]
+ENCDEC_SLOT_SHAPES = {
+    # chip_smoke.py shapes (q) and (r): SeamlessM4T's decoder (16/16 heads,
+    # G 1, head_dim 64) reading its slot cache (S 256) and its cross cache
+    # (S 1024, the source lengths), B 8, c 32, a layer's [B, S, KVH, D]
+    # view as B pages of S tokens
+    "q_encdec_self": (256, [0, 1, 31, 32, 33, 255, 100, 200]),
+    "r_encdec_cross": (1024, SOURCE_LENS),
+}
+
+
+@pytest.mark.parametrize("dtype, variant, forced", FAMILY_VARIANTS,
+                         ids=[f"{d}-{v}" for d, v, _ in FAMILY_VARIANTS])
+@pytest.mark.parametrize("shape", sorted(ENCDEC_SLOT_SHAPES))
+def test_kernel_on_encdec_slot_views_matches_plain_version(
+        cuda, shape, dtype, variant, forced):
+    S, ctx = ENCDEC_SLOT_SHAPES[shape]
+    B, c, H, KVH, D = 8, 32, 16, 16, 64
+    rng = np.random.default_rng(11)
+    mk = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                                    device=cuda).to(torch.bfloat16)
+    q, cache_k, cache_v = mk(B, c, H, D), mk(3, B, S, KVH, D), \
+        mk(3, B, S, KVH, D)
+    tables = torch.arange(B, dtype=torch.int32, device=cuda)[:, None]
+    lens = torch.as_tensor(ctx, dtype=torch.int32, device=cuda)
+    args = (q, cache_k[2], cache_v[2], tables, lens)
+    before = cpa.LAUNCHES
+    acc, m, l = cpa.paged_chunk_attention_kernel(*args, **forced) if forced \
+        else cpa.paged_chunk_attention(*args)
+    torch.cuda.synchronize()
+    assert cpa.LAUNCHES == before + 1
+    acc_r, m_r, l_r = cpa.paged_chunk_ref(*args)
+    torch.testing.assert_close(m, m_r, rtol=1e-5, atol=1e-4)
+    rel = float((acc - acc_r).abs().max()) / float(acc_r.abs().max())
+    assert rel < 3e-2, rel
+    torch.testing.assert_close(l, l_r, rtol=3e-2, atol=1e-5)
+    for b, n in enumerate(ctx):
+        if n == 0:
+            assert torch.all(acc[b] == 0) and torch.all(l[b] == 0)
+
+
+def test_wrappers_raise_on_inputs_that_require_grad(cuda):
+    """Neither kernel has a backward pass: on inputs that require grad,
+    while autograd records, both raise (no quiet fallback); under no_grad
+    they launch."""
+    q = torch.randn((1, 8, 4, 64), device=cuda, dtype=torch.bfloat16)
+    k = torch.randn((1, 8, 2, 64), device=cuda, dtype=torch.bfloat16)
+    ln = torch.full((1,), 8, dtype=torch.int32, device=cuda)
+    t = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    pages = k.reshape(1, 8, 2, 64)
+    for grad_on in (q, k):
+        x = grad_on.clone().requires_grad_()
+        qq, kk = (x, k) if grad_on is q else (q, x)
+        with pytest.raises(ValueError, match="backward"):
+            bda.block_diffusion_attention(qq, kk, kk, ln, block_size=8)
+        with pytest.raises(ValueError, match="backward"):
+            cpa.paged_chunk_attention(qq, kk.reshape(1, 8, 2, 64),
+                                      kk.reshape(1, 8, 2, 64), t, ln)
+        with torch.no_grad():
+            bda.block_diffusion_attention(qq, kk, kk, ln, block_size=8)
+            cpa.paged_chunk_attention(qq, kk.reshape(1, 8, 2, 64),
+                                      kk.reshape(1, 8, 2, 64), t, ln)
+    cpa.paged_chunk_attention(q, pages, pages, t, ln)
+    torch.cuda.synchronize()
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 1, 4, 12), device=cuda)
     kp = torch.zeros((2, 16, 2, 12), device=cuda)
@@ -213,6 +282,9 @@ BD_FAMILY_SHAPES = {
     "n_wave_kimi_k2": (8, 512, 64, 8, 112, 32, WAVE_LENGTHS),
     # shape (p): the hybrid's padded slot prefill at Jamba's heads
     "p_prefill_jamba": (1, 640, 64, 8, 128, 32, [417]),
+    # shape (s): SeamlessM4T's encoder self-attention, bidirectional (block
+    # = S_src 1024) over the source lengths, 16/16 heads, head_dim 64
+    "s_encoder_seamless": (8, 1024, 16, 16, 64, 1024, SOURCE_LENS),
 }
 BD_FAMILY_VARIANTS = [v for v in BD_VARIANTS if v[0] == "bfloat16"]
 

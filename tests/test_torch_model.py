@@ -25,8 +25,8 @@ from repro.models import build_model as jax_build
 from repro.models.common import ArchConfig as JaxArchConfig
 from repro.models.layers import apply_mrope as jax_apply_mrope
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.models import (ArchConfig, TransformerLM, build_model,
-                                params_from_jax)
+from repro_torch.models import (ArchConfig, EncDecLM, TransformerLM,
+                                build_model, params_from_jax)
 from repro_torch.models.layers import apply_mrope, rope_for
 
 # tests/test_paged_backend.py's config
@@ -363,12 +363,15 @@ def test_paged_dispatch_mm_embeds_matches_jax(entry):
 
 @pytest.mark.parametrize("name", ["seamless-m4t-large-v2"])
 def test_unported_families_raise(name):
-    """encdec is not ported: building it raises."""
+    """encdec, the last family, is ported: ``build_model`` builds it as
+    ``EncDecLM`` (at the full config too, on the meta device), and only
+    ``TransformerLM`` refuses it."""
     cfg = get_smoke_config(name)
     assert cfg.family == "encdec"
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        build_model(cfg)
-    with pytest.raises(NotImplementedError, match=cfg.family):
+    assert isinstance(build_model(cfg), EncDecLM)
+    assert isinstance(build_model(get_config(name)), EncDecLM)
+    assert get_config(name).param_count() > 1e9
+    with pytest.raises(ValueError, match=cfg.family):
         TransformerLM(cfg)
     assert isinstance(build_model(get_config("llama4-scout-17b-a16e")),
                       TransformerLM)
@@ -517,9 +520,12 @@ def test_apply_mask_modes_match_jax(mode):
     got = tm.apply(tparams, torch.from_numpy(seq), mask_mode=mode,
                    lengths=torch.from_numpy(lens))
     _close(got, want)
-    with pytest.raises(NotImplementedError, match="training"):
-        tm.apply(tparams, torch.from_numpy(seq),
-                 positions=torch.zeros((2, 3, 20), dtype=torch.int64))
+    # explicit aligned positions are the default ones (the [B, 3, T] M-RoPE
+    # positions of the vlm family: tests/test_torch_training.py)
+    pos = torch.arange(20, dtype=torch.int64)[None].expand(2, 20)
+    torch.testing.assert_close(tm.apply(
+        tparams, torch.from_numpy(seq), positions=pos, mask_mode=mode,
+        lengths=torch.from_numpy(lens)), got, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("T,c", [(16, 8), (8, 16), (24, 8)])

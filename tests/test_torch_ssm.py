@@ -106,7 +106,7 @@ def test_init_states_match_jax(dtype):
     for jfn, tfn in ((jssm.mamba_init_state, ssm.mamba_init_state),
                      (jssm.rwkv_init_state, ssm.rwkv_init_state)):
         js = jfn(jcfg, 3, getattr(jnp, dtype))
-        ts = tfn(tcfg, 3, getattr(torch, dtype))
+        ts = tfn(tcfg, 3, getattr(torch, dtype), device="cpu")
         assert sorted(ts) == sorted(js)
         for k, v in js.items():
             assert tuple(ts[k].shape) == tuple(v.shape)
@@ -209,7 +209,7 @@ def test_mamba_seq_split_consistency(split):
     B, T = 2, 16
     x = torch.from_numpy(np.random.default_rng(0).normal(
         size=(B, T, cfg.d_model)).astype(np.float32))
-    st0 = ssm.mamba_init_state(cfg, B)
+    st0 = ssm.mamba_init_state(cfg, B, device="cpu")
     y_full, st_full = ssm.mamba_seq(p, cfg, x, st0)
     y1, st1 = ssm.mamba_seq(p, cfg, x[:, :split], st0)
     y2, st2 = ssm.mamba_seq(p, cfg, x[:, split:], st1)
@@ -228,7 +228,7 @@ def test_rwkv_seq_split_consistency(split):
     B, T = 2, 12
     x = torch.from_numpy(np.random.default_rng(1).normal(
         size=(B, T, cfg.d_model)).astype(np.float32))
-    st0 = ssm.rwkv_init_state(cfg, B)
+    st0 = ssm.rwkv_init_state(cfg, B, device="cpu")
     tm0 = {"tm_prev": st0["tm_prev"], "wkv": st0["wkv"]}
     y_full, stf = ssm.rwkv_timemix(tm, cfg, x, tm0)
     y1, st1 = ssm.rwkv_timemix(tm, cfg, x[:, :split], tm0)
