@@ -49,6 +49,17 @@ Phases, in order (any failed check raises and the script exits non-zero):
    requests again with wave prefill — with the kernels' launch counts (and
    the paged kernel's merge launches) set to 0 before each run and read
    after it;
+7b. cluster phase: two SDAR-8B replicas built by ``build_model_cluster``
+   sharing the weights on the card, each with its own bf16 page pool, serve
+   12 requests (the first 8 are phase 7's elastic requests) through
+   ``ClusterEngine`` — (i) chunked prefill behind the saturation router,
+   (ii) wave prefill behind round robin — every replica routed, every pool
+   in place and drained, the second replica's pool the only memory it
+   adds, launches = layers x dispatches of each kernel's kind; then
+   (iii) the migration drill: a request force-spilled after 8 committed
+   tokens, migrated to a peer, finishing there with the ticket's and the
+   swapped-in pages' bytes equal to the source's and the tokens of an
+   uninterrupted run;
 8. the moe family: Llama-4 Scout at full width, 8 of its 48 layers (the
    card's 80 GB), random weights drawn on the card: one decode dispatch
    kernel path vs plain path as in phase 4, with the kernel path's routing
@@ -1528,6 +1539,358 @@ def compare_runs(wave: dict, chunked: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# cluster phase (phase 7b): SDAR-8B replicas sharing one card
+# ---------------------------------------------------------------------------
+
+# twice phase 7's 8 elastic requests would be 16; cut to 12: with 16, phase
+# 7b took 85.7 s on an H100 SXM (700 W) and the whole script 561 s, 30%
+# over the 430 s it took before the phase
+CLUSTER_REQUESTS = 12
+CLUSTER_PROMPT, CLUSTER_NEW = (128, 512), (64, 128)
+CLUSTER_MAX_LEN = 1024
+CLUSTER_MEM_RTOL = 0.05          # the second replica's rise vs its pool
+DRILL_PROMPT, DRILL_NEW, DRILL_SPILL_AT = 256, 64, 8
+
+
+def build_replicas(model, params, n: int, router, **kw):
+    """``build_model_cluster`` on the card in bf16, with
+    ``torch.cuda.memory_allocated()`` read before the first replica and
+    after each replica's backend is built."""
+    import torch
+
+    from repro_torch.cluster import factory
+
+    backend = factory.ModelBackend
+    torch.cuda.synchronize()
+    mem = [torch.cuda.memory_allocated()]
+
+    def counted(*a, **k):
+        be = backend(*a, **k)
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated())
+        return be
+
+    factory.ModelBackend = counted
+    try:
+        cluster = factory.build_model_cluster(
+            model, params, n, router, device=DEVICE,
+            cache_dtype=torch.bfloat16, **kw)
+    finally:
+        factory.ModelBackend = backend
+    return cluster, mem
+
+
+def pool_bytes(kv) -> int:
+    return sum(t.numel() * t.element_size() for t in (kv.k_pages, kv.v_pages))
+
+
+def pool_ptrs(kv) -> tuple:
+    return kv.k_pages.data_ptr(), kv.v_pages.data_ptr()
+
+
+def spy_outputs(cores) -> dict:
+    """Every replica's committed tokens at release: ``{(replica, rid):
+    tokens}``."""
+    outs = {}
+    for i, core in enumerate(cores):
+        be = core.backend
+
+        def make(release, be, i):
+            def spy(rid):
+                outs[(i, rid)] = list(be.state(rid).output_tokens)
+                release(rid)
+            return spy
+
+        be.release = make(be.release, be, i)
+    return outs
+
+
+def cluster_checks(what, cfg, params, cores, ptrs, outs, reqs) -> list:
+    """The checks every phase-7b run shares: each request commits its
+    ``max_new_tokens`` tokens, none the mask id or outside the vocabulary;
+    the weights are the caller's (one ``data_ptr`` a weight across the
+    replicas); every pool stayed in place and drained, no page seized or
+    spilled."""
+    want = {r.rid: r.max_new_tokens for r in reqs}
+    got = {rid: toks for (_, rid), toks in outs.items() if rid in want}
+    return [
+        (sorted(got) == sorted(want), "not every request finished"),
+        (all(len(got[rid]) == n for rid, n in want.items()),
+         "a request committed the wrong number of tokens"),
+        (all(0 <= t < cfg.vocab_size and t != cfg.mask_token_id
+             for v in got.values() for t in v),
+         "a committed token is the mask id or outside the vocabulary"),
+        (all(core.backend.params is params and all(
+            core.backend.params[n].data_ptr() == t.data_ptr()
+            for n, t in params.items()) for core in cores),
+         "a replica does not share the weights"),
+        ([pool_ptrs(core.backend.kv) for core in cores] == ptrs,
+         "a page pool moved"),
+        (all(core.backend.kv.free_pages == core.backend.kv.n_pages
+             and not core.backend.kv._spilled and not core.backend.kv._seized
+             for core in cores), "a pool did not drain"),
+    ]
+
+
+def raise_failed(what, checks):
+    for ok, msg in checks:
+        if not ok:
+            raise AssertionError(f"{what}: {msg}")
+
+
+def cluster_run(model, params, name: str, router: str, prefill_mode: str,
+                reqs) -> dict:
+    """One ``build_model_cluster`` run of two SDAR-8B replicas sharing the
+    weights: every request at t = 0, the kernels' launch counts set to 0
+    before ``ClusterEngine.run`` and read after it."""
+    import torch
+
+    from repro_torch.kernels import block_diffusion_attn as bda
+    from repro_torch.kernels import chunked_paged_attn as cpa
+    from repro_torch.serving import DATASETS
+
+    cfg = model.cfg
+    host_pages = -(-(CLUSTER_PROMPT[1] + CLUSTER_NEW[1]) // cfg.kv_page_size)
+    cluster, mem = build_replicas(
+        model, params, 2, router, profile=DATASETS["sharegpt"],
+        mode="elastic", n_slots=8, max_len=CLUSTER_MAX_LEN,
+        prefill_mode=prefill_mode, host_kv_pages=host_pages)
+    cores = cluster.replicas
+    sizes = [pool_bytes(core.backend.kv) for core in cores]
+    rise = mem[2] - mem[1]
+    ptrs = [pool_ptrs(core.backend.kv) for core in cores]
+    outs = spy_outputs(cores)
+    torch.cuda.synchronize()
+    cpa.LAUNCHES = cpa.MERGE_LAUNCHES = bda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rep = cluster.run(list(reqs))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, merges, bd_launches = (cpa.LAUNCHES, cpa.MERGE_LAUNCHES,
+                                     bda.LAUNCHES)
+    n_dec = [core.backend.decode_dispatches for core in cores]
+    n_pre = [core.backend.prefill_dispatches for core in cores]
+    tokens = sum(len(v) for v in outs.values())
+    wave = prefill_mode == "wave"
+    res = {"run": name, "router": router, "prefill_mode": prefill_mode,
+           "requests": len(rep.metrics), "tokens_committed": tokens,
+           "wall_s": wall, "tok_per_s": tokens / wall,
+           "route_counts": list(rep.route_counts), "spills": rep.spills,
+           "preemptions": rep.preemptions, "migrations": rep.migrations,
+           "rejected": list(rep.rejected),
+           "decode_dispatches": n_dec, "prefill_dispatches": n_pre,
+           "kernel_launches": launches, "merge_launches": merges,
+           "bd_kernel_launches": bd_launches,
+           "pool_bytes": sizes, "memory_rise_second_replica": rise,
+           "outputs": {rid: toks for (_, rid), toks in outs.items()}}
+    log(f"cluster {name} ({router}, {prefill_mode} prefill, 2 replicas of "
+        f"{cfg.name}, {cfg.n_layers} layers): {res['requests']} requests "
+        f"finished, {tokens} tokens committed in {wall:.3f} s wall "
+        f"({res['tok_per_s']:.2f} committed tok/s); routed "
+        f"{res['route_counts']}, spills {rep.spills}, preemptions "
+        f"{rep.preemptions}, migrations {rep.migrations}; decode "
+        f"dispatches {n_dec}, prefill dispatches {n_pre}; {launches} paged "
+        f"({merges} with a split merge) + {bd_launches} block-diffusion "
+        f"launches; pools {sizes} B, memory_allocated rose {rise} B when "
+        f"the second replica was built")
+    weights = sum(t.numel() * t.element_size() for t in params.values())
+    checks = cluster_checks(f"cluster {name}", cfg, params, cores, ptrs,
+                            outs, reqs) + [
+        (len(rep.metrics) == len(reqs) and not rep.rejected,
+         "a request was rejected"),
+        (all(n >= 1 for n in rep.route_counts), "a replica was routed none"),
+        (abs(rise - sizes[1]) <= CLUSTER_MEM_RTOL * sizes[1]
+         and rise < weights,
+         f"the second replica raised memory_allocated by {rise} B, its "
+         f"pool is {sizes[1]} B (the weights {weights} B)"),
+        (launches == cfg.n_layers * (sum(n_dec) if wave
+                                     else sum(n_dec) + sum(n_pre)),
+         f"{launches} paged launches != {cfg.n_layers} x the "
+         f"{'decode' if wave else 'decode + chunked-prefill'} dispatches"),
+        (merges <= launches, f"{merges} merges > {launches} launches"),
+        (bd_launches == (cfg.n_layers * sum(n_pre) if wave else 0)
+         and (not wave or bd_launches > 0),
+         f"{bd_launches} block-diffusion launches, {sum(n_pre)} "
+         f"{prefill_mode}-prefill dispatches"),
+    ]
+    raise_failed(f"cluster {name}", checks)
+    return res
+
+
+def migration_drill(model, params, seed: int) -> dict:
+    """The migration drill of the reference's fault-tolerance tests at
+    full width: one request (prompt 256, 64 new tokens) on replica 0 is
+    force-spilled once it has committed 8 tokens, migrated out and into
+    replica 1 and finished there; replica 2 serves the same request
+    uninterrupted.  The ticket's K/V must equal the source pages read just
+    before the spill, the destination's pages must hold them after the
+    swap-in, and the tokens must equal the uninterrupted run's (else the
+    first divergence and its top-1/top-2 gap are recorded; a gap above
+    the bf16 tolerance is a fault)."""
+    import torch
+
+    from repro_torch.kernels import block_diffusion_attn as bda
+    from repro_torch.kernels import chunked_paged_attn as cpa
+    from repro_torch.serving import DATASETS
+
+    cfg = model.cfg
+    n_pages = -(-(DRILL_PROMPT + DRILL_NEW) // cfg.kv_page_size)
+    cluster, _ = build_replicas(
+        model, params, 3, "round_robin", profile=DATASETS["sharegpt"],
+        mode="bd8", n_slots=8, max_len=CLUSTER_MAX_LEN,
+        prefill_mode="chunked", host_kv_pages=n_pages)
+    cores = cluster.replicas
+    src, dst, solo = cores
+    ptrs = [pool_ptrs(core.backend.kv) for core in cores]
+    outs = spy_outputs(cores)
+    make = lambda: make_requests(  # noqa: E731
+        cfg, seed + 2, 1, (DRILL_PROMPT, DRILL_PROMPT),
+        (DRILL_NEW, DRILL_NEW))
+    bits = lambda t: t.contiguous().view(torch.int16)  # noqa: E731
+
+    def serve(core, gaps, req=None):
+        undo = record_gaps(core.backend, gaps)
+        try:
+            if req is not None:
+                core.submit(req)
+            while not core.idle:
+                core.tick()
+        finally:
+            undo()
+
+    torch.cuda.synchronize()
+    cpa.LAUNCHES = cpa.MERGE_LAUNCHES = bda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    solo_gaps, mig_gaps = {}, {}
+    serve(solo, solo_gaps, make()[0])
+    # the source: serve until 8 tokens are committed and the prefill is done
+    s = src.backend
+    src.submit(make()[0])
+    while not src.idle:
+        st = s._states.get(0)
+        if st is not None and st.n_committed >= DRILL_SPILL_AT \
+                and not s._prefill.pending(0):
+            break
+        src.tick()
+    committed = s._states[0].n_committed
+    table = s.kv.block_table(0)
+    n_tokens = s.kv.length(0)
+    before = (s.kv.k_pages[:, table].cpu(), s.kv.v_pages[:, table].cpu())
+    spilled = src.preempt(0, reason="drain", force_spill=True)
+    (moved,) = src.take_pending()
+    ticket = s.migrate_out(0)
+    payload = ticket["payload"] if ticket is not None else {}
+    # the destination: adopt, then the spill-resume admission swaps in
+    d = dst.backend
+    swapped = {}
+    swap_in = d.kv.swap_in_request
+
+    def swap_in_read(rid):
+        new = swap_in(rid)
+        swapped["pages"] = (d.kv.k_pages[:, new].cpu(),
+                            d.kv.v_pages[:, new].cpu())
+        return new
+
+    d.kv.swap_in_request = swap_in_read
+    adopted = d.migrate_in(moved, ticket)
+    dst.note_failover(moved.rid)
+    serve(dst, mig_gaps, moved)
+    del d.kv.swap_in_request
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, merges, bd_launches = (cpa.LAUNCHES, cpa.MERGE_LAUNCHES,
+                                     bda.LAUNCHES)
+    n_disp = sum(core.backend.decode_dispatches
+                 + core.backend.prefill_dispatches for core in cores)
+
+    base, mig = outs.get((2, 0), []), outs.get((1, 0), [])
+    first = next((i for i, (a, b) in enumerate(zip(base, mig)) if a != b),
+                 None)
+    gap = None
+    if first is not None:
+        gaps = [g.get(first) for g in (*solo_gaps.values(),
+                                       *mig_gaps.values())]
+        gap = min((g for g in gaps if g is not None), default=None)
+    payload_equal = bool(
+        payload.get("k") is not None
+        and payload["k"].device.type == "cpu"
+        and torch.equal(bits(payload["k"]), bits(before[0]))
+        and torch.equal(bits(payload["v"]), bits(before[1])))
+    swap_equal = bool(
+        "pages" in swapped
+        and torch.equal(bits(swapped["pages"][0]), bits(before[0]))
+        and torch.equal(bits(swapped["pages"][1]), bits(before[1])))
+    res = {"committed_at_spill": committed, "spilled_tokens": n_tokens,
+           "spilled_pages": len(table), "payload_equal": payload_equal,
+           "swap_in_equal": swap_equal, "tokens_equal": base == mig,
+           "first_divergence": first, "gap_at_first_divergence": gap,
+           "wall_s": wall, "tokens_committed": len(base) + len(mig),
+           "kernel_launches": launches, "merge_launches": merges,
+           "bd_kernel_launches": bd_launches}
+    log(f"migration drill ({cfg.name}, {cfg.n_layers} layers): spilled at "
+        f"{committed} committed tokens ({n_tokens} tokens in {len(table)} "
+        f"pages), ticket K/V equal to the source pages: {payload_equal}, "
+        f"the destination's pages after swap-in: {swap_equal}; migrated "
+        f"tokens equal the uninterrupted run's: {base == mig} (first "
+        f"divergence {first}, gap {gap}); {wall:.3f} s wall for both runs, "
+        f"{launches} paged ({merges} with a split merge) + {bd_launches} "
+        f"block-diffusion launches")
+    checks = cluster_checks("migration drill", cfg, params, cores, ptrs,
+                            {k: v for k, v in outs.items() if k != (2, 0)},
+                            make()) + [
+        (len(base) == DRILL_NEW, "the uninterrupted run did not finish"),
+        (committed >= DRILL_SPILL_AT and bool(spilled) and ticket is not None
+         and adopted, "the spill, the ticket or the adoption failed"),
+        (payload_equal, "the ticket's K/V differs from the source pages"),
+        (swap_equal, "the destination's pages differ after the swap-in"),
+        (base == mig or (gap is not None and gap <= BF16_TOL),
+         f"the migrated tokens diverge at {first} with gap {gap}"),
+        (launches == cfg.n_layers * n_disp and bd_launches == 0,
+         f"{launches} paged launches != {cfg.n_layers} x {n_disp} "
+         f"dispatches, or {bd_launches} block-diffusion launches"),
+    ]
+    raise_failed("migration drill", checks)
+    return res
+
+
+def cluster_phase(model, params, seed: int, elastic: dict) -> dict:
+    """Phase 7b: (i) chunked prefill behind the saturation router, (ii)
+    wave prefill behind round robin, on the same 12 requests, and (iii)
+    the migration drill.  The first 8 requests are phase 7's elastic
+    run's; how many commit the same tokens, and where each first differs,
+    is a reading."""
+    import torch
+
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    reqs = lambda: make_requests(  # noqa: E731
+        cfg, seed, CLUSTER_REQUESTS, CLUSTER_PROMPT, CLUSTER_NEW)
+    runs = []
+    for name, router, prefill in (("chunked", "saturation", "chunked"),
+                                  ("wave", "round_robin", "wave")):
+        runs.append(cluster_run(model, params, name, router, prefill,
+                                reqs()))
+        gc.collect()
+        torch.cuda.empty_cache()
+    first = {rid: next((i for i, (a, b) in enumerate(
+        zip(runs[0]["outputs"][rid], toks)) if a != b), None)
+        for rid, toks in elastic["outputs"].items()}
+    same = sum(i is None for i in first.values())
+    log(f"cluster chunked vs phase 7's elastic run: {same} of "
+        f"{len(first)} shared requests commit the same tokens; first "
+        f"divergence by request {first}")
+    drill = migration_drill(model, params, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in runs:
+        del r["outputs"]
+    wall = time.perf_counter() - t0
+    log(f"phase 7b: {wall:.3f} s wall")
+    return {"runs": runs, "drill": drill, "same_as_phase7": same,
+            "first_divergence_vs_phase7": first, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
 # the recurrent families (ssm, hybrid) on the dense-slot path
 # ---------------------------------------------------------------------------
 
@@ -2767,6 +3130,9 @@ def main() -> int:
     runs.append(serve_run(model, params, "wave", elastic_reqs(cfg),
                           max_len=1024))
     wave_vs_chunked = {"sdar-8b": compare_runs(runs[2], runs[0])}
+    torch.cuda.empty_cache()
+    log_phase("7b: SDAR-8B cluster")
+    cluster_res = cluster_phase(model, params, args.seed, runs[0])
     del model, params
     free("sdar-8b")
 
@@ -2845,18 +3211,22 @@ def main() -> int:
     free(cfg.name)
 
     log_phase("done")
+    cluster_runs = cluster_res["runs"] + [cluster_res["drill"]]
     head = kern_rows[0]
     kernels = [{
         "name": "paged_chunk_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/chunked_paged_attn.cu",
         "replaces": "src/repro/kernels/chunked_paged_attn.py:85",
-        "launches": sum(r["kernel_launches"] for r in runs)
+        "launches": sum(r["kernel_launches"] for r in runs + cluster_runs)
         + encdec_res["kernel_launches"],
-        "merge_launches": sum(r["merge_launches"] for r in runs)
+        "merge_launches": sum(r["merge_launches"]
+                              for r in runs + cluster_runs)
         + encdec_res["merge_launches"],
         "launches_by_site": {"serving runs": sum(r["kernel_launches"]
                                                  for r in runs),
+                             "cluster runs": sum(r["kernel_launches"]
+                                                 for r in cluster_runs),
                              "encdec decoder reads":
                                  encdec_res["kernel_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern_rows),
@@ -2871,10 +3241,13 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_diffusion_attn.cu",
         "replaces": "src/repro/kernels/block_diffusion_attn.py:86",
-        "launches": sum(r["bd_kernel_launches"] for r in runs)
+        "launches": sum(r["bd_kernel_launches"]
+                        for r in runs + cluster_runs)
         + encdec_res["bd_kernel_launches"],
         "launches_by_site": {"serving runs": sum(r["bd_kernel_launches"]
                                                  for r in runs),
+                             "cluster runs": sum(r["bd_kernel_launches"]
+                                                 for r in cluster_runs),
                              "encdec encoder":
                                  encdec_res["bd_kernel_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in bd_rows),
@@ -2893,6 +3266,7 @@ def main() -> int:
              "kernels": kernels, "moe_layer": moe_rows,
              "model": model_res, "profile": profile_res,
              "prefill_model": prefill_res, "moe_model": moe_model_res,
+             "cluster": cluster_res,
              "ssm": ssm_res, "hybrid": hybrid_res, "serve": runs,
              "wave_vs_chunked": wave_vs_chunked, "train": train_res,
              "launcher": launcher_res, "encdec_train": enc_train_res,

@@ -6,8 +6,8 @@ from repro_torch.core.chunked import (ChunkedDecodeState, batch_apply_step,
 from repro_torch.core.diffusion import (DecodeTrace, batch_commit_decisions,
                                   block_decode_reference, commit_decisions,
                                   softmax_confidence)
-from repro_torch.core.latency_model import (A100_80G, TPU_V5E, AnalyticDeviceModel,
-                                      DeviceSpec,
+from repro_torch.core.latency_model import (A100_80G, H100_SXM, TPU_V5E,
+                                      AnalyticDeviceModel, DeviceSpec,
                                       PiecewiseAffineLatencyModel)
 from repro_torch.core.scheduler import (DEFAULT_CHUNKS, ElasticScheduler,
                                   FixedScheduler)
@@ -18,6 +18,6 @@ __all__ = [
     "DecodeTrace", "batch_commit_decisions", "block_decode_reference",
     "commit_decisions", "softmax_confidence", "AnalyticDeviceModel",
     "DeviceSpec", "PiecewiseAffineLatencyModel", "TPU_V5E", "A100_80G",
-    "ElasticScheduler", "FixedScheduler", "TokenUtilEstimator",
+    "H100_SXM", "ElasticScheduler", "FixedScheduler", "TokenUtilEstimator",
     "DEFAULT_CHUNKS",
 ]

@@ -40,8 +40,14 @@ A100_80G = DeviceSpec("a100-80g", 312e12, 2.0e12, 300e9, 40e-6, 80 * 2**30,
                       host_bw=25e9)
 CPU_HOST = DeviceSpec("cpu-host", 1e11, 3e10, 1e10, 1e-4, 32 * 2**30,
                       host_bw=3e10)
+# H100 SXM5 datasheet: 989 TFLOP/s dense bf16, 3.35 TB/s HBM3, 80 GiB.  The
+# NVLink rate, the host (PCIe 5 x16) rate and the per-step overhead are
+# placeholders until a latency model is fitted from steps measured on the
+# card (PiecewiseAffineLatencyModel.fit with profile_wall_clock).
+H100_SXM = DeviceSpec("h100-sxm", 989e12, 3.35e12, 450e9, 40e-6, 80 * 2**30,
+                      host_bw=64e9)
 
-DEVICES = {d.name: d for d in (TPU_V5E, A100_80G, CPU_HOST)}
+DEVICES = {d.name: d for d in (TPU_V5E, A100_80G, CPU_HOST, H100_SXM)}
 
 
 # ---------------------------------------------------------------------------

@@ -34,13 +34,53 @@ def make_scheduler(mode: str, backend, profile):
         prior_tokens_per_step=profile.tokens_per_step_bd32)
 
 
+def run_single_replica_faults(args, profile):
+    """``--faults`` on the sim backend: serve the same workload through a
+    one-replica cluster engine (the fault timeline lives there)."""
+    from repro_torch.cluster import build_sim_cluster
+    from repro_torch.common.faults import FaultPlan
+
+    wl_kw = {"share_ratio": args.share_ratio} \
+        if args.workload == "shared" else {}
+    cluster = build_sim_cluster(
+        get_config(args.arch), profile, 1, "rr",
+        device=DEVICES[args.device], mode=args.mode,
+        kv_pages=args.kv_pages or 1 << 16, max_batch=args.max_batch,
+        seed=args.seed, kv_admission=args.kv_admission,
+        prefill_mode=args.prefill_mode,
+        prefill_token_budget=args.prefill_budget, kv_shards=args.kv_shards,
+        prefix_cache=not args.no_prefix_cache,
+        host_kv_pages=args.host_kv_pages,
+        fault_plan=FaultPlan.parse(args.faults))
+    wl = make_trace(profile, args.workload, args.rate, args.requests,
+                    seed=args.seed, **wl_kw)
+    rep = cluster.run(list(wl))
+    print(f"requests: {len(rep.metrics)}")
+    print(f"decode throughput: {rep.throughput:.1f} tok/s")
+    print(f"P50/P90/P99 TPOT: {rep.tpot_percentile(50)*1e3:.1f} / "
+          f"{rep.tpot_percentile(90)*1e3:.1f} / "
+          f"{rep.tpot_percentile(99)*1e3:.1f} ms")
+    kinds = {}
+    for f in rep.faults:
+        if f["op"] in ("crash", "stall", "oom"):
+            kinds[f["op"]] = kinds.get(f["op"], 0) + 1
+    print("faults applied: " +
+          (" ".join(f"{k}={v}" for k, v in sorted(kinds.items())) or "none"))
+    print(f"re-submissions: {rep.resubmissions}  "
+          f"lost tokens: {rep.lost_tokens}")
+    reasons = rep.reject_reasons()
+    print("rejects: " + (" ".join(f"{k}={v}"
+                                  for k, v in sorted(reasons.items()))
+                         or "none"))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="sdar-8b")
     ap.add_argument("--mode", default="elastic",
                     help="elastic | ar | bd<chunk> (e.g. bd32)")
     ap.add_argument("--backend", default="sim", choices=["sim", "model"])
-    ap.add_argument("--device", default="tpu-v5e", choices=list(DEVICES))
+    ap.add_argument("--device", default="h100-sxm", choices=list(DEVICES))
     ap.add_argument("--dataset", default="sharegpt", choices=list(DATASETS))
     ap.add_argument("--rate", type=float, default=2.0)
     ap.add_argument("--requests", type=int, default=100)
@@ -89,8 +129,10 @@ def main():
                          "trace_event JSON for ui.perfetto.dev)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--faults", default=None, metavar="SPEC",
-                    help="fault schedule for a single-replica cluster "
-                         "engine (the cluster layer is not ported yet)")
+                    help="sim backend only: run through a single-replica "
+                         "cluster engine with this deterministic fault "
+                         "schedule (e.g. 'stall@1:r0:dur=0.5:slow=4'); "
+                         "see serve_cluster for multi-replica failover")
     ap.add_argument("--torch-device", default="cuda",
                     help="model backend: torch device the model, page pool "
                          "and kernels run on (cpu runs the plain versions)")
@@ -98,7 +140,10 @@ def main():
 
     profile = DATASETS[args.dataset]
     if args.faults:
-        ap.error("--faults needs the cluster layer, not ported yet")
+        if args.backend != "sim":
+            ap.error("--faults requires --backend sim")
+        run_single_replica_faults(args, profile)
+        return
     wl_kw = {"share_ratio": args.share_ratio} \
         if args.workload == "shared" else {}
     if args.backend == "sim":

@@ -28,7 +28,10 @@ def test_every_module_imports_without_jax():
     assert "repro_torch.kernels.chunked_paged_attn" in mods
     assert "repro_torch.launch.serve" in mods
     for name in ("repro_torch.training.train_loop", "repro_torch.launch.train",
-                 "repro_torch.models.encdec", "repro_torch.common.faults"):
+                 "repro_torch.models.encdec", "repro_torch.common.faults",
+                 "repro_torch.cluster.engine",
+                 "repro_torch.launch.serve_cluster",
+                 "repro_torch.launch.trace_view"):
         assert name in mods
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
