@@ -60,6 +60,22 @@ Phases, in order (any failed check raises and the script exits non-zero):
    tokens, migrated to a peer, finishing there with the ticket's and the
    swapped-in pages' bytes equal to the source's and the tokens of an
    uninterrupted run;
+7c. sharded pool phase: split-KV on an S-shard ``kv`` mesh whose every
+   shard is this card (``make_kv_mesh(S, devices=[DEVICE] * S)``): (i)
+   ``split_kv_paged_partial`` at shape (a) for S 2 and 4 with tables from a
+   striped allocator, against the unsharded kernel and the plain versions
+   (a ctx-0 row exact, a one-shard row bit-equal to its shard's partial),
+   timed for S 1, 2, 4; (ii) one full-width decode dispatch with S 4
+   against the same dispatch unsharded, at phase 4's limits, the first
+   layer's paged-prefix partial held at its call site against a control
+   with one shard's acc skewed; (iii) phase 7's elastic requests served by
+   ``ModelBackend(kv_shards=4)`` with chunked prefill and ``kv_shards=2``
+   with wave prefill: paged launches = S x layers x paged-reading
+   dispatches, device dispatches and collective bytes as the backend's
+   formula, every shard block in place, the pools drained, and at each
+   request's first decode dispatch that commits otherwise than phase 7's
+   unsharded run in the same window, every difference within the bf16
+   rule; the requests that commit phase 7's tokens a reading;
 8. the moe family: Llama-4 Scout at full width, 8 of its 48 layers (the
    card's 80 GB), random weights drawn on the card: one decode dispatch
    kernel path vs plain path as in phase 4, with the kernel path's routing
@@ -1328,11 +1344,17 @@ def prefill_model_phase(model, params, pool, seed: int) -> dict:
 # serving phase (the main path)
 # ---------------------------------------------------------------------------
 
-def record_gaps(be, gaps: dict):
+def record_gaps(be, gaps: dict, margins: dict | None = None,
+                steps: dict | None = None):
     """While a diffusion run serves, note for every committed token the
     top-1/top-2 logit gap of the decode dispatch that committed it:
-    ``gaps[id(state)][output index] = gap``.  Hooks the decode sampler and
-    the batched commit; undo with the returned function."""
+    ``gaps[id(state)][output index] = gap``, and in ``margins`` the bf16
+    rule's margin there (``BF16_TOL`` x max(|top-1|, 1) - gap; below 0 the
+    gap exceeds the op tolerance).  With ``steps``, every decode dispatch
+    a state takes part in appends to ``steps[id(state)]`` its window and
+    what decided the commits (:func:`dispatch_divergence`).  Hooks the
+    decode sampler and the batched commit; undo with the returned
+    function."""
     import numpy as np
 
     import repro_torch.models.transformer as tfm
@@ -1345,16 +1367,30 @@ def record_gaps(be, gaps: dict):
         if logits.dim() == 3:                 # decode [B, c, V]
             top2 = logits.topk(2, dim=-1).values
             last["gap"] = top2[..., 0] - top2[..., 1]
+            last["tol"] = BF16_TOL * top2[..., 0].abs().clamp(min=1.0)
         return sampler(logits)
 
     def apply(states, conf, tok, valid, cai):
         frozen = [st.frozen for st in states]
         mask, n_adv = commit(states, conf, tok, valid, cai)
         gap = last.pop("gap").float().cpu().numpy()
+        tol = last.pop("tol").float().cpu().numpy()
         for i, st in enumerate(states):
+            v = int(valid[i])
+            if steps is not None and v:
+                steps.setdefault(id(st), []).append({
+                    "frozen": frozen[i], "valid": v, "c": mask.shape[1],
+                    "threshold": float(st.threshold),
+                    "cai": np.array(cai[i, :v]), "commit": mask[i, :v],
+                    "tok": np.array(tok[i, :v]),
+                    "conf": np.asarray(conf[i, :v], np.float64),
+                    "gap": gap[i, :v], "tol": tol[i, :v]})
             row = gaps.setdefault(id(st), {})
             for j in np.nonzero(mask[i])[0]:
                 row[frozen[i] + int(j)] = float(gap[i, j])
+                if margins is not None:
+                    margins.setdefault(id(st), {})[frozen[i] + int(j)] = \
+                        float(tol[i, j] - gap[i, j])
         return mask, n_adv
 
     tfm.softmax_confidence_device = sample
@@ -1366,9 +1402,12 @@ def record_gaps(be, gaps: dict):
     return undo
 
 
-def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
+def serve_run(model, params, mode: str, reqs, max_len: int,
+              kv_shards: int = 1) -> dict:
     """One serving run: ``mode`` "elastic" (chunked prefill), "ar", or
-    "wave" (the elastic run with wave prefill)."""
+    "wave" (the elastic run with wave prefill); with ``kv_shards`` > 1 on a
+    pool sharded over a ``kv_shards``-way mesh of this one card (phase
+    7c), every paged read split-KV."""
     import torch
 
     from repro_torch.core.latency_model import CPU_HOST, AnalyticDeviceModel
@@ -1377,14 +1416,18 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
     from repro_torch.kernels import chunked_paged_attn as cpa
     from repro_torch.models import moe
     from repro_torch.serving import DATASETS, ModelBackend, ServingEngine
+    from repro_torch.serving.backends import _split_kv_collective_bytes
 
     cfg = model.cfg
     wave = mode == "wave"
+    S = kv_shards
     sorted_moe = moe.takes_sorted_path(cfg)   # grouped products, every layer
+    shard_kw = {} if S == 1 else {"kv_shards": S,
+                                  "kv_mesh": kv_shard_spec(S).mesh}
     be = ModelBackend(model, params, n_slots=8, max_len=max_len,
                       decode_mode="ar" if mode == "ar" else "elastic",
                       cache_dtype=torch.bfloat16, device=DEVICE,
-                      prefill_mode="wave" if wave else "chunked")
+                      prefill_mode="wave" if wave else "chunked", **shard_kw)
     if mode in ("elastic", "wave"):   # as launch/serve.py builds it
         sched = ElasticScheduler.from_analytic(
             AnalyticDeviceModel(cfg, CPU_HOST),
@@ -1406,19 +1449,23 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
     setattr(model, prefill_fn, record("prefill", getattr(type(model),
                                                          prefill_fn)
                                       .__get__(model)))
-    outs, gaps, gap_of = {}, {}, {}
+    outs, gaps, gap_of, margins, margin_of = {}, {}, {}, {}, {}
+    steps, steps_of = {}, {}
     release = be.release
 
     def spy(rid):
         st = be.state(rid)
         outs[rid] = st.output_tokens
         gap_of[rid] = gaps.pop(id(st), {})
+        margin_of[rid] = margins.pop(id(st), {})
+        steps_of[rid] = steps.pop(id(st), [])
         release(rid)
 
     be.release = spy
-    ptrs = (be.kv.k_pages.data_ptr(), be.kv.v_pages.data_ptr())
+    ptrs = pool_ptrs(be.kv)
     eng = ServingEngine(be, sched, max_batch=8)
-    undo = record_gaps(be, gaps) if wave else (lambda: None)
+    undo = record_gaps(be, gaps, margins, steps) if mode != "ar" \
+        else (lambda: None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cpa.LAUNCHES = cpa.MERGE_LAUNCHES = bda.LAUNCHES = 0
@@ -1440,7 +1487,7 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
     dec_bytes = sum(8 * b * c for b, c in shapes["decode"])
     pre_bytes = sum(8 * b for b, _ in shapes["prefill"])
     res = {"arch": cfg.name, "layers": cfg.n_layers, "mode": mode,
-           "requests": len(rep.metrics),
+           "kv_shards": S, "requests": len(rep.metrics),
            "tokens_committed": tokens, "decode_dispatches": n_dec,
            "prefill_dispatches": n_pre, "kernel_launches": launches,
            "merge_launches": merges, "bd_kernel_launches": bd_launches,
@@ -1450,8 +1497,17 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
            "wall_s": wall, "tok_per_s": tokens / wall,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "chunks": sorted({c for _, c in shapes["decode"]}),
-           "batches": sorted({b for b, _ in shapes["decode"]})}
-    log(f"serve {cfg.name} ({cfg.n_layers} layers) {mode}: "
+           "batches": sorted({b for b, _ in shapes["decode"]}),
+           "device_dispatches": be.device_dispatches,
+           "collective_bytes": be.collective_bytes}
+    # the analytic cross-shard merge traffic of the dispatches made: every
+    # decode and chunked-prefill dispatch reads the pool (a wave writes only)
+    want_bytes = sum(_split_kv_collective_bytes(S, cfg.n_layers, cfg.n_heads,
+                                                cfg.hd, b, t)
+                     for b, t in shapes["decode"]
+                     + ([] if wave else shapes["prefill"]))
+    log(f"serve {cfg.name} ({cfg.n_layers} layers) {mode}"
+        f"{f', {S} kv shards' if S > 1 else ''}: "
         f"{res['requests']} requests finished, {tokens} "
         f"tokens committed, {n_dec} decode + {n_pre} prefill dispatches, "
         f"{launches} paged ({merges} with a split merge) + {bd_launches} "
@@ -1461,7 +1517,8 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
         f" host bytes per decode dispatch, {wall:.3f} s wall, "
         f"{res['tok_per_s']:.2f} committed tok/s, max_memory_allocated "
         f"{res['max_memory_allocated']} B, chunks {res['chunks']}, "
-        f"batches {res['batches']}")
+        f"batches {res['batches']}; device dispatches "
+        f"{be.device_dispatches}, collective bytes {be.collective_bytes}")
 
     checks = [
         (len(rep.metrics) == len(reqs), "not every request finished"),
@@ -1471,16 +1528,16 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
          "a committed token is outside the vocabulary"),
         (n_dec == len(shapes["decode"]) and n_pre == len(shapes["prefill"]),
          "dispatch counters disagree with the dispatches made"),
-        (wave or launches == cfg.n_layers * (n_dec + n_pre),
-         f"{launches} kernel launches != {cfg.n_layers} x {n_dec + n_pre} "
-         f"dispatches"),
+        (wave or launches == S * cfg.n_layers * (n_dec + n_pre),
+         f"{launches} kernel launches != {S} x {cfg.n_layers} x "
+         f"{n_dec + n_pre} dispatches"),
         (merges <= launches, f"{merges} merge launches > {launches} paged "
          f"launches"),
         (wave or bd_launches == 0,
          f"{bd_launches} block-diffusion launches in a chunked run"),
-        (not wave or launches == cfg.n_layers * n_dec,
-         f"{launches} paged launches != {cfg.n_layers} x {n_dec} decode "
-         f"dispatches"),
+        (not wave or launches == S * cfg.n_layers * n_dec,
+         f"{launches} paged launches != {S} x {cfg.n_layers} x {n_dec} "
+         f"decode dispatches"),
         (not wave or bd_launches == cfg.n_layers * n_pre > 0,
          f"{bd_launches} block-diffusion launches != {cfg.n_layers} x "
          f"{n_pre} prefill dispatches"),
@@ -1490,25 +1547,108 @@ def serve_run(model, params, mode: str, reqs, max_len: int) -> dict:
          f"{n_dec + n_pre} dispatches"),
         (be.host_transfer_bytes == dec_bytes + pre_bytes,
          "host bytes != 8·Bp·c per decode + 8·Bp per prefill dispatch"),
-        ((be.kv.k_pages.data_ptr(), be.kv.v_pages.data_ptr()) == ptrs,
-         "the page pool moved"),
+        (pool_ptrs(be.kv) == ptrs, "the page pool moved"),
         (be.kv.free_pages == be.kv.n_pages, "pages leaked"),
+        (be.device_dispatches == S * (n_dec + n_pre),
+         f"device_dispatches {be.device_dispatches} != {S} x "
+         f"{n_dec + n_pre}"),
+        (be.collective_bytes == want_bytes,
+         f"collective_bytes {be.collective_bytes} != {want_bytes}, the "
+         f"formula summed over the dispatches"),
     ]
     for ok, msg in checks:
         if not ok:
             raise AssertionError(f"serve {cfg.name} {mode}: {msg}")
     res["outputs"] = {r.rid: outs[r.rid] for r in reqs}
     res["gaps"] = gap_of
+    res["margins"] = margin_of
+    res["steps"] = steps_of
     return res
 
 
-def compare_runs(wave: dict, chunked: dict) -> dict:
+def dispatch_divergence(run, base, what: str) -> dict:
+    """Each request's first decode dispatch (its k-th, counting only the
+    dispatches it takes part in) where ``run`` and ``base`` differ, and the
+    bf16 rule held there, a check.
+
+    Up to that dispatch both runs committed the same (position, token)
+    pairs, so the request's state is the same.  Where the window differs
+    too (start, length, chunk or the committed-at-input mask), the
+    scheduler chose another chunk — other requests had diverged already —
+    and the logits are of other inputs: a reading.  Where the window is
+    the same, the commits differ only by the logits' rounding, and every
+    difference must sit within the op tolerance ``eps`` = ``BF16_TOL`` x
+    max(|top-1|, 1) of ``base``'s logits there: a token that flips at a
+    position both commit has ``base``'s top-1/top-2 gap under ``eps``; a
+    position above the threshold in one run only has |ln conf - ln
+    threshold| under 2·eps (a move of every logit by eps moves ln conf by
+    at most 2·eps); two runs that both commit their single most confident
+    position (no position above the threshold) but pick different ones
+    have |ln conf_p - ln conf_q| under 2·(eps_p + eps_q).  A dispatch's
+    margin is its least such margin; below 0 is a fault."""
+    import numpy as np
+
+    out, faults = {}, []
+    for rid, bsteps in base["steps"].items():
+        for k, (b, r) in enumerate(zip(bsteps, run["steps"][rid])):
+            same_window = (b["frozen"] == r["frozen"]
+                           and b["valid"] == r["valid"] and b["c"] == r["c"]
+                           and np.array_equal(b["cai"], r["cai"]))
+            same_commits = (np.array_equal(b["commit"], r["commit"])
+                            and np.array_equal(b["tok"][b["commit"]],
+                                               r["tok"][r["commit"]]))
+            if same_window and same_commits:
+                continue
+            rec = {"dispatch": k, "position": b["frozen"]}
+            if not same_window:
+                rec["kind"] = "window"
+                out[rid] = rec
+                break
+            eps, ln = b["tol"], np.log(np.maximum(b["conf"], 1e-300))
+            lnt = np.log(b["threshold"])
+            margins = [("token", int(j), float(eps[j] - b["gap"][j]))
+                       for j in np.nonzero(b["commit"] & r["commit"]
+                                           & (b["tok"] != r["tok"]))[0]]
+            if not np.array_equal(b["commit"], r["commit"]):
+                unc = ~b["cai"]
+                above = [(x["conf"] > x["threshold"]) & unc for x in (b, r)]
+                if not above[0].any() and not above[1].any():
+                    p, q = (int(np.argmax(x["commit"])) for x in (b, r))
+                    margins.append(("fallback", (p, q), float(
+                        2 * (eps[p] + eps[q]) - abs(ln[p] - ln[q]))))
+                else:
+                    margins += [("threshold", int(j),
+                                 float(2 * eps[j] - abs(ln[j] - lnt)))
+                                for j in np.nonzero(above[0] != above[1])[0]]
+            kind, at, margin = min(margins, key=lambda m: m[2])
+            rec.update(kind=kind, at=at, margin=margin,
+                       differences=len(margins))
+            out[rid] = rec
+            if margin < 0:
+                faults.append((rid, rec))
+            break
+    checked = {rid: x["margin"] for rid, x in out.items() if "margin" in x}
+    log(f"{what}: first differing decode dispatch by request "
+        f"{ {rid: (x['dispatch'], x['kind']) for rid, x in out.items()} }; "
+        f"bf16 rule's margin there (same window) {checked}")
+    if faults:
+        raise AssertionError(f"{what}: a first differing dispatch breaks the "
+                             f"bf16 rule: {faults}")
+    return {"by_request": out, "checked": len(checked),
+            "least_margin": min(checked.values()) if checked else None}
+
+
+def compare_runs(wave: dict, chunked: dict,
+                 what: str = "wave vs chunked elastic") -> dict:
     """Committed tokens of the wave run against the chunked elastic run on
-    the same requests: the share that differ, and the least top-1/top-2
-    logit gap (wave run) among the tokens that differ.  The runs differ in
-    the prefill kernel's bf16 rounding and in the chunks the elastic
-    scheduler picks (it sees the whole backlog at once in wave mode), so
-    this is a reading, not a check."""
+    the same requests (or of any run with recorded gaps against a base
+    run): the share that differ, the least top-1/top-2 logit gap (first
+    run) among the tokens that differ, and the gap and the bf16 rule's
+    margin at each request's first divergence.  The runs differ in the
+    prefill kernel's bf16 rounding and in the chunks the elastic scheduler
+    picks (it sees the whole backlog at once in wave mode), and a token
+    committed a dispatch earlier or later moves every later window, so this
+    is a reading, not a check."""
     total, diff, gaps, first = 0, 0, [], {}
     for rid, toks in chunked["outputs"].items():
         mine = wave["outputs"][rid]
@@ -1526,15 +1666,19 @@ def compare_runs(wave: dict, chunked: dict) -> dict:
            "least_gap_where_differ": min(gaps) if gaps else None,
            "gap_at_first_divergence": {
                rid: wave["gaps"].get(rid, {}).get(i)
+               for rid, i in first.items()},
+           "margin_at_first_divergence": {
+               rid: wave.get("margins", {}).get(rid, {}).get(i)
                for rid, i in first.items()}}
-    log(f"wave vs chunked elastic ({wave['arch']}): {diff}/{total} "
+    log(f"{what} ({wave['arch']}): {diff}/{total} "
         f"committed tokens differ "
         f"(share {out['tokens_differ_share']:.4f}), "
         f"{out['requests_identical']} of {len(chunked['outputs'])} requests "
         f"identical; first divergence by request {first}; least top-1/top-2 "
-        f"gap among the differing tokens (wave run) "
+        f"gap among the differing tokens (first run) "
         f"{out['least_gap_where_differ']}, at each first divergence "
-        f"{out['gap_at_first_divergence']}")
+        f"{out['gap_at_first_divergence']} (bf16 rule's margin "
+        f"{out['margin_at_first_divergence']})")
     return out
 
 
@@ -1580,12 +1724,19 @@ def build_replicas(model, params, n: int, router, **kw):
     return cluster, mem
 
 
+def pool_tensors(kv) -> list:
+    """The pool's tensors: every shard's K and V blocks (an unsharded
+    pool's one K and one V)."""
+    ks, vs, _ = kv.pool_blocks()
+    return ks + vs
+
+
 def pool_bytes(kv) -> int:
-    return sum(t.numel() * t.element_size() for t in (kv.k_pages, kv.v_pages))
+    return sum(t.numel() * t.element_size() for t in pool_tensors(kv))
 
 
 def pool_ptrs(kv) -> tuple:
-    return kv.k_pages.data_ptr(), kv.v_pages.data_ptr()
+    return tuple(t.data_ptr() for t in pool_tensors(kv))
 
 
 def spy_outputs(cores) -> dict:
@@ -1888,6 +2039,330 @@ def cluster_phase(model, params, seed: int, elastic: dict) -> dict:
     log(f"phase 7b: {wall:.3f} s wall")
     return {"runs": runs, "drill": drill, "same_as_phase7": same,
             "first_divergence_vs_phase7": first, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
+# sharded pool phase (phase 7c): split-KV over an S-shard mesh of one card
+# ---------------------------------------------------------------------------
+
+SPLIT_SHARDS = (2, 4)              # kernel level, at shape (a)
+SPLIT_DECODE_SHARDS = 4            # dispatch level
+SPLIT_SERVE = (("elastic", 4), ("wave", 2))   # serving: mode, kv_shards
+# The dispatch level holds the sharded decode dispatch against the same
+# dispatch unsharded (both through the kernel) at phase 4's limits, plus:
+#   pages_rel   max |pages - pages_unsharded| / std over the K/V rows the
+#               dispatch froze (4 a row, 36 layers), at the logits' limit:
+#               layers >= 1 carry the same downstream rounding
+#   prefix_rel  max |o - o_unsharded| / max |o_unsharded|, o = acc / l of
+#               the first layer's paged-prefix partial (live rows): the
+#               call site, whose inputs are identical on both paths
+# The control skews ONE shard's acc by CONTROL_SKEW.  A row's keys spread
+# over the S shards, so the skew reaches the output at about 1/S of phase
+# 4's strength, under the downstream noise of 36 random bf16 layers; the
+# control must break prefix_rel, and its downstream readings are printed.
+# Split-KV changes only the fp32 order of the prefix partial's sums
+# (about 1e-6 relative at the call site); a one-shard 3% skew moves it by
+# about 1e-2.
+SPLIT_LIMITS = {**MODEL_LIMITS, "pages_rel": MODEL_LIMITS["logits_rel"],
+                "prefix_rel": 5e-4}
+SPLIT_CONTROL_BREAKS = ("prefix_rel",)
+
+
+def kv_shard_spec(S: int):
+    """An S-shard ``kv`` mesh whose every shard is this card."""
+    from repro_torch.distributed.collectives import KVShardSpec
+    from repro_torch.launch.mesh import make_kv_mesh
+    return KVShardSpec(make_kv_mesh(S, devices=[DEVICE] * S), S)
+
+
+def striped_tables(S: int, lens, page_size: int, n_pages: int):
+    """Block tables from a real ``PagedKVAllocator(kv_shards=S)`` holding
+    ``lens[b]`` tokens for row b: (allocator, tables [B, W] int32, stripe
+    offsets [B] int32), the tensors on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.kv_pool import PagedKVAllocator
+    kv = PagedKVAllocator(n_pages, page_size, kv_shards=S)
+    for rid, n in enumerate(lens):
+        kv.allocate(rid, n)
+    rids = list(range(len(lens)))
+    W = max(kv.pages_for(max(lens)), 1)
+    tables = torch.as_tensor(np.array(kv.batch_tables(rids, W)),
+                             dtype=torch.int32, device=DEVICE)
+    offs = torch.as_tensor(kv.stripe_offsets(rids), dtype=torch.int32,
+                           device=DEVICE)
+    return kv, tables, offs
+
+
+def split_kernel_level(seed: int) -> list[dict]:
+    """``split_kv_paged_partial`` at shape (a) for S in SPLIT_SHARDS, tables
+    from a striped allocator, both layouts holding the same logical K/V:
+    the combined output held against the unsharded kernel's, the plain
+    version's and the plain split-KV version's (bf16 tolerance); a ctx-0
+    row the exact empty partial, and a row whose every token sits on one
+    shard bit-equal to that shard's own partial (the empty shards merge to
+    a no-op).  CUDA-event times for S = 1, 2, 4 beside phase 3's bound."""
+    import torch
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels import chunked_paged_attn as cpa
+    from repro_torch.kernels.ops import combine_flash_partials
+
+    name, B, c, H, KVH, D, ps, dtype, ctx = KERNEL_SHAPES[0]
+    n_pages = B * -(-max(ctx) // ps) + 16
+    b_ms, b_by = bound(B, c, H, KVH, D, ps, dtype, ctx)
+    lens = torch.as_tensor(ctx, dtype=torch.int32, device=DEVICE)
+    rows = []
+    for S in (1,) + SPLIT_SHARDS:
+        kv, tables, offs = striped_tables(S, ctx, ps, n_pages)
+        g = torch.Generator(device=DEVICE).manual_seed(seed + S)
+        q, kp, vp = (torch.randn(shape, generator=g, device=DEVICE)
+                     .to(getattr(torch, dtype)) for shape in
+                     ((B, c, H, D), (n_pages, ps, KVH, D),
+                      (n_pages, ps, KVH, D)))
+        if S == 1:
+            def call():
+                return cpa.paged_chunk_attention_kernel(q, kp, vp, tables,
+                                                        lens)
+        else:
+            ks = kv_shard_spec(S)
+            kb, vb = (coll.shard_pages(t, ks, dim=0) for t in (kp, vp))
+
+            def call():
+                return coll.split_kv_paged_partial(q, kb, vb, tables, lens,
+                                                   offs, ks)
+        before = (cpa.LAUNCHES, cpa.MERGE_LAUNCHES)
+        got = call()
+        torch.cuda.synchronize()
+        launches = (cpa.LAUNCHES - before[0], cpa.MERGE_LAUNCHES - before[1])
+        row = {"S": S, "shape": name, "ms": time_ms(call), "bound_ms": b_ms,
+               "bound_by": b_by, "paged_launches_per_call": launches[0],
+               "merge_launches_per_call": launches[1]}
+        if launches[0] != S:
+            raise AssertionError(f"split-KV (a), S {S}: {launches[0]} paged "
+                                 f"launches in one call, not {S}")
+        if S > 1:
+            out = combine_flash_partials([got])
+            refs = {"unsharded kernel": cpa.paged_chunk_attention_kernel(
+                        q, kp, vp, tables, lens),
+                    "plain": cpa.paged_chunk_ref(q, kp, vp, tables, lens),
+                    "plain split-KV": coll.split_kv_paged_partial(
+                        q, kb, vb, tables, lens, offs, ks, impl="ref")}
+            for what, r in refs.items():
+                want = combine_flash_partials([r])
+                rel = float((out - want).abs().max() / want.abs().max())
+                row[f"rel_err_vs_{what.replace(' ', '_')}"] = rel
+                if not rel < BF16_TOL:
+                    raise AssertionError(f"split-KV (a), S {S}: output vs "
+                                         f"{what} {rel} >= {BF16_TOL}")
+            acc, m, l = got
+            for i in [i for i, x in enumerate(ctx) if x == 0]:
+                if not (torch.all(acc[i] == 0) and torch.all(l[i] == 0)
+                        and torch.all(m[i] == -1e30)):
+                    raise AssertionError(f"split-KV S {S}: ctx-0 row {i} is "
+                                         f"not the empty partial")
+            one = [i for i, x in enumerate(ctx) if 0 < x <= ps]
+            for i in one:
+                sh = kv.shard_of(kv.block_table(i)[0])
+                lt, lc = coll._local_slots(tables, lens, offs, sh,
+                                           n_shards=S,
+                                           pages_local=kv.pages_per_shard,
+                                           page_size=ps)
+                own = cpa.paged_chunk_attention_kernel(q, kb[sh], vb[sh],
+                                                       lt, lc)
+                if not all(torch.equal(a[i], b[i]) for a, b in
+                           zip(got, own)):
+                    raise AssertionError(f"split-KV S {S}: row {i} (every "
+                                         f"token on shard {sh}) differs "
+                                         f"from its shard's own partial")
+            row["one_shard_rows_exact"] = one
+        rows.append(row)
+        log(f"split-KV kernel level (a), S {S}: {row['ms']:.4f} ms "
+            f"({row['ms'] / b_ms:.1f}x the bound {b_ms:.5f} ms, {b_by}), "
+            f"{launches[0]} paged + {launches[1]} merge launches a call"
+            + "".join(f", rel err vs {k[11:]} {v:.3e}" for k, v in
+                      row.items() if k.startswith("rel_err_vs_")))
+        del q, kp, vp, got
+    return rows
+
+
+def split_dispatch_level(model, params, seed: int) -> dict:
+    """One full-width ``decode_step_paged`` with the pool sharded over
+    SPLIT_DECODE_SHARDS shards, against the same dispatch unsharded on the
+    same weights and logical pool (both through the kernel), at
+    SPLIT_LIMITS; the writes land where the unsharded dispatch's do, the
+    first layer's bit-equal, and the rest of the pool is untouched."""
+    import torch
+
+    import repro_torch.models.transformer as tfm
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels.ops import combine_flash_partials
+
+    cfg = model.cfg
+    S, ps = SPLIT_DECODE_SHARDS, cfg.kv_page_size
+    n_pages = MODEL_B * -(-(max(MODEL_CTX) + MODEL_C) // ps)
+    kv, tables, offs = striped_tables(
+        S, [x + MODEL_C for x in MODEL_CTX], ps, n_pages)
+    ks = kv_shard_spec(S)
+    flat = model.init_paged_cache(n_pages, ps, dtype=torch.bfloat16,
+                                  device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 11)
+    for t in flat.values():
+        t.copy_(torch.randn(t.shape, generator=g, device=DEVICE))
+    start_pool = {n: t.clone() for n, t in flat.items()}
+    win, start, valid, _ = decode_inputs(model, MODEL_CTX, seed)
+    n_adv = torch.full((MODEL_B,), 4, dtype=torch.int64, device=DEVICE)
+    L, P, _, KVH, hd = flat["k_pages"].shape
+    pos = start[:, None] + torch.arange(4, device=DEVICE)[None]
+    dest = tfm._page_dest(tables, pos, torch.ones_like(pos, dtype=torch.bool),
+                          ps, P).reshape(-1)
+    live = [i for i, x in enumerate(MODEL_CTX) if x > 0]
+    first = {}
+
+    def catch(name, fn):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            first.setdefault(name, out)
+            return out
+        return wrapped
+
+    def dispatch(sharded: bool):
+        first.clear()
+        cache = ({n: coll.shard_pages(t, ks) for n, t in start_pool.items()}
+                 if sharded else {n: t.clone() for n, t in
+                                  start_pool.items()})
+        kw = {"kv_shard": ks, "shard_offs": offs} if sharded else {}
+        name = "split_kv_paged_partial" if sharded else \
+            "paged_chunk_attention"
+        keep = getattr(tfm, name)
+        setattr(tfm, name, catch("prefix", keep))
+        try:
+            conf, tok, _ = model.decode_step_paged(
+                params, cache, win, start, valid, tables, start, n_adv,
+                impl="kernel", **kw)
+        finally:
+            setattr(tfm, name, keep)
+        logits, _ = model.chunk_forward_paged(params, cache, win, start,
+                                              valid, tables, start,
+                                              impl="kernel", **kw)
+        pools = {n: coll.unshard_pages(t) if sharded else t
+                 for n, t in cache.items()}
+        prefix = combine_flash_partials([first["prefix"]])[live]
+        for t in (conf, logits):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"split-KV dispatch: non-finite output "
+                                     f"(sharded {sharded})")
+        return conf, tok, logits, pools, prefix
+
+    cu, tu, lu, pu, ou = dispatch(False)
+    sharded = dispatch(True)
+    exact = coll.paged_chunk_attention
+    calls = [0]
+
+    def one_shard_skewed(*a, **k):
+        acc, m, l = exact(*a, **k)
+        calls[0] += 1
+        if calls[0] % S == 1:              # shard 0 of every split-KV call
+            acc = acc * (1 + CONTROL_SKEW)
+        return acc, m, l
+
+    coll.paged_chunk_attention = one_shard_skewed
+    try:
+        control = dispatch(True)
+    finally:
+        coll.paged_chunk_attention = exact
+    torch.cuda.synchronize()
+
+    written = lambda pools: torch.cat(  # noqa: E731
+        [pools[n].view(L, P * ps, KVH, hd)[:, dest] for n in
+         ("k_pages", "v_pages")]).float()
+    wu = written(pu)
+    wu_std = float(wu.std())
+    readings, margin_of, gap, lu_std = decode_readings(cu, tu, lu)
+
+    def all_readings(conf, tok, logits, pools, prefix):
+        r = readings(conf, tok, logits)
+        r["pages_rel"] = float((written(pools) - wu).abs().max()) / wu_std
+        r["prefix_rel"] = float((prefix - ou).abs().max()
+                                / ou.abs().max())
+        return r
+
+    sound, ctl = all_readings(*sharded), all_readings(*control)
+    n_diff, max_gap, margin = margin_of(sharded[1])
+    # the writes: layer 0's frozen K/V bit-equal (they depend on the
+    # embeddings only), and outside the frozen rows nothing in either pool
+    # moved
+    def outside(t):
+        t = t.view(L, P * ps, KVH, hd).clone()
+        t[:, dest] = 0
+        return t
+
+    for n in ("k_pages", "v_pages"):
+        a, b = (t.view(L, P * ps, KVH, hd) for t in (sharded[3][n], pu[n]))
+        if not torch.equal(a[0, dest], b[0, dest]):
+            raise AssertionError("split-KV dispatch: layer 0's frozen K/V "
+                                 "differ from the unsharded dispatch's")
+        if not (torch.equal(outside(a), outside(b))
+                and torch.equal(outside(b), outside(start_pool[n]))):
+            raise AssertionError("split-KV dispatch: a pool row outside the "
+                                 "frozen ones changed")
+    res = {"S": S, "B": MODEL_B, "c": MODEL_C, "ctx_lens": MODEL_CTX,
+           "stripe_offsets": offs.tolist(), "tokens": tu.numel(),
+           "tokens_differ": n_diff, "max_gap_where_differ": max_gap,
+           "gap_margin": margin, "frozen_kv_rows": int(dest.numel()),
+           "sharded_vs_unsharded": sound, "control_skew": CONTROL_SKEW,
+           "control_one_shard_vs_unsharded": ctl, "limits": SPLIT_LIMITS,
+           "control_breaks": SPLIT_CONTROL_BREAKS}
+    log(f"split-KV dispatch (decode_step_paged, B {MODEL_B}, c {MODEL_C}, "
+        f"ctx {MODEL_CTX}, S {S}, stripe offsets {res['stripe_offsets']}): "
+        f"tokens differ {n_diff}/{tu.numel()} from the unsharded dispatch "
+        f"(largest gap where they differ {max_gap:.4f}, least margin "
+        f"{margin}); {res['frozen_kv_rows']} K/V rows frozen a layer, layer "
+        f"0's bit-equal, the rest of the pool untouched")
+    for key, lim in SPLIT_LIMITS.items():
+        log(f"  {key}: sharded {sound[key]:.6g}  control (shard 0's acc x "
+            f"{1 + CONTROL_SKEW}) {ctl[key]:.6g}  limit {lim}")
+    if n_diff and not margin > 0:
+        raise AssertionError("split-KV dispatch: a token differs where its "
+                             "top-1/top-2 gap exceeds the bf16 tolerance")
+    check_limits("split-KV dispatch", sound, ctl, SPLIT_LIMITS,
+                 SPLIT_CONTROL_BREAKS)
+    return res
+
+
+def split_phase(model, params, seed: int, base: dict) -> dict:
+    """Phase 7c: the kernel level, the dispatch level, then phase 7's
+    elastic requests served with the pool sharded (SPLIT_SERVE); each
+    serving run's committed tokens against phase 7's unsharded run of the
+    same prefill mode (``base``): a reading, and the bf16 rule at each
+    request's first differing dispatch (:func:`dispatch_divergence`), a
+    check."""
+    import torch
+
+    t0 = time.perf_counter()
+    kernel = split_kernel_level(seed)
+    torch.cuda.empty_cache()
+    dispatch = split_dispatch_level(model, params, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs, vs = [], {}
+    for mode, S in SPLIT_SERVE:
+        run = serve_run(model, params, mode, make_requests(
+            model.cfg, seed, 8, (128, 512), (64, 128)), max_len=1024,
+            kv_shards=S)
+        what = f"{mode}, {S} kv shards vs unsharded"
+        vs[f"{mode}, S {S}"] = compare_runs(run, base[mode], what)
+        vs[f"{mode}, S {S}"]["first_dispatch"] = dispatch_divergence(
+            run, base[mode], what)
+        del run["outputs"], run["gaps"], run["margins"], run["steps"]
+        runs.append(run)
+        gc.collect()
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"phase 7c: {wall:.3f} s wall")
+    return {"kernel_level": kernel, "dispatch_level": dispatch,
+            "runs": runs, "vs_unsharded": vs, "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -3133,6 +3608,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     log_phase("7b: SDAR-8B cluster")
     cluster_res = cluster_phase(model, params, args.seed, runs[0])
+    torch.cuda.empty_cache()
+    log_phase("7c: SDAR-8B sharded page pool")
+    split_res = split_phase(model, params, args.seed,
+                            {"elastic": runs[0], "wave": runs[2]})
     del model, params
     free("sdar-8b")
 
@@ -3162,7 +3641,7 @@ def main() -> int:
     del model, params
     free(cfg.name)
     for r in runs:
-        del r["outputs"], r["gaps"]
+        del r["outputs"], r["gaps"], r["steps"]
 
     log_phase("10: RWKV6-1.6B")
     # RWKV6-1.6B at full width and depth (the ssm family, AR)
@@ -3212,21 +3691,25 @@ def main() -> int:
 
     log_phase("done")
     cluster_runs = cluster_res["runs"] + [cluster_res["drill"]]
+    split_runs = split_res["runs"]
     head = kern_rows[0]
     kernels = [{
         "name": "paged_chunk_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/chunked_paged_attn.cu",
         "replaces": "src/repro/kernels/chunked_paged_attn.py:85",
-        "launches": sum(r["kernel_launches"] for r in runs + cluster_runs)
+        "launches": sum(r["kernel_launches"]
+                        for r in runs + cluster_runs + split_runs)
         + encdec_res["kernel_launches"],
         "merge_launches": sum(r["merge_launches"]
-                              for r in runs + cluster_runs)
+                              for r in runs + cluster_runs + split_runs)
         + encdec_res["merge_launches"],
         "launches_by_site": {"serving runs": sum(r["kernel_launches"]
                                                  for r in runs),
                              "cluster runs": sum(r["kernel_launches"]
                                                  for r in cluster_runs),
+                             "sharded pool runs": sum(
+                                 r["kernel_launches"] for r in split_runs),
                              "encdec decoder reads":
                                  encdec_res["kernel_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern_rows),
@@ -3242,12 +3725,14 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/block_diffusion_attn.cu",
         "replaces": "src/repro/kernels/block_diffusion_attn.py:86",
         "launches": sum(r["bd_kernel_launches"]
-                        for r in runs + cluster_runs)
+                        for r in runs + cluster_runs + split_runs)
         + encdec_res["bd_kernel_launches"],
         "launches_by_site": {"serving runs": sum(r["bd_kernel_launches"]
                                                  for r in runs),
                              "cluster runs": sum(r["bd_kernel_launches"]
                                                  for r in cluster_runs),
+                             "sharded pool runs": sum(
+                                 r["bd_kernel_launches"] for r in split_runs),
                              "encdec encoder":
                                  encdec_res["bd_kernel_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in bd_rows),
@@ -3266,7 +3751,7 @@ def main() -> int:
              "kernels": kernels, "moe_layer": moe_rows,
              "model": model_res, "profile": profile_res,
              "prefill_model": prefill_res, "moe_model": moe_model_res,
-             "cluster": cluster_res,
+             "cluster": cluster_res, "split_kv": split_res,
              "ssm": ssm_res, "hybrid": hybrid_res, "serve": runs,
              "wave_vs_chunked": wave_vs_chunked, "train": train_res,
              "launcher": launcher_res, "encdec_train": enc_train_res,

@@ -15,9 +15,10 @@ from repro_torch.kernels.chunked_paged_attn import paged_chunk_attention
 from repro_torch.kernels.ref import merge_flash_partials
 
 
-def combine_flash_partials(parts, out_dtype=torch.float32):
-    """Normalize the merge of flash partials: ``merge → acc / max(l, ε)``."""
-    acc_g, _, l_g = merge_flash_partials(parts)
+def combine_flash_partials(parts, out_dtype=torch.float32, device=None):
+    """Normalize the merge of flash partials: ``merge → acc / max(l, ε)``
+    (``device``: the cross-shard merge, :func:`merge_flash_partials`)."""
+    acc_g, _, l_g = merge_flash_partials(parts, device=device)
     return (acc_g / torch.clamp(l_g, min=1e-30)[..., None]).to(out_dtype)
 
 

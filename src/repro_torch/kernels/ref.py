@@ -52,13 +52,21 @@ def paged_chunk_ref(q, k_pages, v_pages, block_tables, ctx_lens, *,
     return acc, m, l
 
 
-def merge_flash_partials(parts):
+def merge_flash_partials(parts, device=None):
     """Merge flash partials ``[(acc, m, l), ...]`` over disjoint KV sets
     into ONE partial ``(acc, m, l)`` — the exact log-sum-exp combine
     (``acc = Σ e^{logit-m} v``, ``m = max logit``, ``l = Σ e^{logit-m}``).
     An empty partial (acc 0, m = -1e30, l 0) merges to a no-op: its
     correction factor underflows to 0, never NaN.  The plain version of the
-    paged kernel's split merge."""
+    paged kernel's split merge.
+
+    ``device`` gives the cross-shard form: the parts come from the shards
+    of a mesh, one a shard, each on its shard's device; they are brought
+    to ``device`` and merged there — the max of m and the sums of the
+    corrected acc and l across the shards, which the JAX package writes
+    as ``pmax`` and ``psum`` over a mapped axis."""
+    if device is not None:
+        parts = [tuple(t.to(device) for t in p) for p in parts]
     m_g = parts[0][1]
     for _, m, _ in parts[1:]:
         m_g = torch.maximum(m_g, m)

@@ -91,9 +91,11 @@ def main():
                     help="KV pool pages (sim default 65536; model default "
                          "mirrors 8 slots × max_len)")
     ap.add_argument("--kv-shards", type=int, default=1,
-                    help="sim backend: sharded allocator bookkeeping "
-                         "(the model backend's split-KV pool is not "
-                         "ported yet)")
+                    help="split the paged KV pool across this many "
+                         "devices on a 'kv' mesh axis (model backend: "
+                         "split-KV paged decode with an exact partial "
+                         "merge, one visible card a shard; sim backend: "
+                         "sharded allocator bookkeeping)")
     ap.add_argument("--kv-admission", default="incremental",
                     choices=["incremental", "reserve"],
                     help="sim backend: incremental page growth with "

@@ -1,11 +1,11 @@
-"""Mixture-of-Experts FFN, on one device.
+"""Mixture-of-Experts FFN, on one device (no expert parallelism).
 
 The counterpart of the JAX package's ``models/moe.py`` with the same
 semantics, dtypes and rounding points:
 
 * :func:`moe_block_dense` — one-hot einsum over every expert (the oracle;
   also what every config with at most 8 experts runs, as in the reference
-  without a mesh).
+  when no mesh is installed).
 * :func:`_moe_local` — the sorted production path on one device
   (``n_model = 1``): token-choice top-k routing, the (token, expert) pairs
   sorted by expert with a stable argsort and cut to the capacity, one
@@ -18,7 +18,9 @@ semantics, dtypes and rounding points:
 tensor it is one ``torch._grouped_mm`` call (bf16 only; anything else
 raises rather than falling back, since the fallback would read the sizes
 on the host), on a CPU tensor the plain loop over the groups
-(:func:`grouped_matmul_loop`).  Expert parallelism over a mesh
+(:func:`grouped_matmul_loop`).  The port has a mesh
+(:mod:`repro_torch.launch.mesh`, with the collectives of
+:mod:`repro_torch.distributed`), but expert parallelism over it
 (``moe_block_sharded`` / ``moe_block_2d``) is not ported yet.
 
 ``GROUPED_CALLS`` counts grouped products that went through the CUDA

@@ -16,6 +16,12 @@ The paged entry points, for the attention-only families (dense, moe, vlm):
 * ``prefill_paged`` — the wave prefill: one forward over a whole admission
   wave's prompts that scatters their KV into the pool.
 
+Each takes ``kv_shard`` (a ``KVShardSpec``) for a pool sharded over a
+mesh: the cache then holds the shards' blocks, every paged read is
+split-KV (:func:`repro_torch.distributed.collectives.split_kv_paged_partial`,
+with the rows' stripe offsets ``shard_offs``), and every write stays on
+its page's shard.
+
 The dense-slot entry points, which the recurrent families (hybrid, ssm)
 serve through (a fixed ``[L_attn, B, S, KVH, hd]`` slot cache plus the
 recurrent ``states``):
@@ -55,6 +61,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.collectives import (scatter_pages_sharded,
+                                                 shard_local_slots,
+                                                 split_kv_paged_partial)
 from repro_torch.kernels.ops import (block_diffusion_attention,
                                      paged_chunk_attention,
                                      softmax_confidence_device)
@@ -98,6 +107,27 @@ def _scatter_pages(pages, new, dest):
     live = torch.nonzero(d < P * ps).squeeze(1)
     flat[:, d[live]] = new.to(pages.dtype).reshape(L, -1, KVH, hd)[:, live]
     return pages
+
+
+def _scatter_paged(pages, new, dest, kv_shard=None):
+    """Page-pool scatter, the shard-local variant when the pool is sharded
+    (``kv_shard``: a ``KVShardSpec``, ``pages`` the shards' blocks) — each
+    shard drops out-of-shard destinations, so no KV crosses shards and
+    every block is written in place.
+
+    COW safety: the allocator's ``ensure_private`` runs *before* any
+    dispatch that writes a page, so every written page is refcount-1."""
+    if kv_shard is None:
+        return _scatter_pages(pages, new, dest)
+    return scatter_pages_sharded(pages, new, dest, kv_shard)
+
+
+def _pool_dims(pages, kv_shard=None) -> tuple[int, int]:
+    """(global page count, page size) of a pool: one tensor, or with
+    ``kv_shard`` the shards' equal blocks."""
+    if kv_shard is None:
+        return pages.shape[1], pages.shape[2]
+    return kv_shard.n_shards * pages[0].shape[1], pages[0].shape[2]
 
 
 def copy_pages(cache, src, dst):
@@ -288,7 +318,17 @@ class TransformerLM:
             parts.append(fn(q, lx["cache_k"][l].to(cfg.cdt),
                             lx["cache_v"][l].to(cfg.cdt),
                             shared["slot_tables"], shared["cache_len"]))
-        if "page_k" in lx:
+        if "page_k" in lx and "kv_shard" in shared:
+            # sharded pool: split-KV over the shards' blocks, the partials
+            # merged exactly across them
+            parts.append(split_kv_paged_partial(
+                q, [b[l].to(cfg.cdt) for b in lx["page_k"]],
+                [b[l].to(cfg.cdt) for b in lx["page_v"]],
+                shared["block_tables"], shared["ctx_lens"],
+                shared["shard_offs"], shared["kv_shard"],
+                impl="ref" if ref else "kernel",
+                local=shared["shard_local"]))
+        elif "page_k" in lx:
             parts.append(fn(q, lx["page_k"][l].to(cfg.cdt),
                             lx["page_v"][l].to(cfg.cdt),
                             shared["block_tables"], shared["ctx_lens"]))
@@ -662,15 +702,27 @@ class TransformerLM:
         return x, self._collect_kv(kvs)
 
     def _paged_shared(self, positions, validm, c, block_tables, ctx_lens,
-                      impl):
+                      impl, cache, kv_shard=None, shard_offs=None):
         shared = self._window_masks(positions, validm, c)
         shared.update(block_tables=block_tables.to(torch.int32),
                       ctx_lens=ctx_lens.to(torch.int32), impl=impl)
+        if kv_shard is not None:
+            # the sharded pool's fields, read by the paged branch of _attn;
+            # every shard's local tables and ctx once for all the layers
+            if shard_offs is None:
+                shard_offs = torch.zeros_like(shared["ctx_lens"])
+            shard_offs = shard_offs.to(torch.int32)
+            blk = cache["k_pages"][0]
+            shared.update(kv_shard=kv_shard, shard_offs=shard_offs,
+                          shard_local=shard_local_slots(
+                              shared["block_tables"], shared["ctx_lens"],
+                              shard_offs, kv_shard, pages_local=blk.shape[1],
+                              page_size=blk.shape[2]))
         return shared
 
     def prefill_paged(self, params, cache, tokens, lengths, block_tables,
                       mm_embeds=None, mm_mask=None, head_mode: str = "logits",
-                      *, impl: str = "kernel"):
+                      *, impl: str = "kernel", kv_shard=None):
         """Batched prompt forward writing KV into the page pool (wave
         prefill): the whole admission wave runs as ONE forward.
 
@@ -685,6 +737,11 @@ class TransformerLM:
         (:func:`softmax_confidence_device`) and returns (conf [B], tok
         [B]), so serving never ships [B,V] logits to the host.  Returns
         (head output, cache) — the same cache dict, updated in place.
+
+        ``kv_shard`` (a ``KVShardSpec`` or None): sharded page pool — the
+        cache holds the shards' blocks and the KV scatter stays shard-local
+        (block tables carry GLOBAL page ids).  The forward reads no page,
+        so it is the same either way.
         """
         self._check_paged()
         if head_mode not in ("logits", "sample"):
@@ -703,18 +760,19 @@ class TransformerLM:
         idx = torch.clamp(lengths.long() - 1, 0, T - 1)
         xl = x[torch.arange(B, device=dev), idx][:, None]
         logits = self.head(params, xl)[:, 0]
-        P, ps = cache["k_pages"].shape[1], cache["k_pages"].shape[2]
+        P, ps = _pool_dims(cache["k_pages"], kv_shard)
         keep = positions < lengths[:, None]
         dest = _page_dest(block_tables, positions, keep, ps, P)
-        _scatter_pages(cache["k_pages"], kv["k"], dest)
-        _scatter_pages(cache["v_pages"], kv["v"], dest)
+        _scatter_paged(cache["k_pages"], kv["k"], dest, kv_shard)
+        _scatter_paged(cache["v_pages"], kv["v"], dest, kv_shard)
         if head_mode == "sample":
             return softmax_confidence_device(logits), cache
         return logits, cache
 
     def prefill_chunk_paged(self, params, cache, tokens, offsets, valid,
                             block_tables, *, impl: str = "kernel",
-                            mm_embeds=None, mm_mask=None):
+                            mm_embeds=None, mm_mask=None, kv_shard=None,
+                            shard_offs=None):
         """One resumable prefill chunk per row: forward prompt tokens
         [offsets, offsets + valid) against the pages already written by
         earlier chunks (``ctx_lens = offsets``), and write this chunk's KV
@@ -722,7 +780,9 @@ class TransformerLM:
 
         tokens [B,T] (row-padded), offsets [B], valid [B] (0 ⇒ padded row,
         no writes).  Returns (conf [B], tok [B], cache): the
-        last-valid-position head reduced on device.
+        last-valid-position head reduced on device.  ``kv_shard`` and
+        ``shard_offs`` [B] (the rows' stripe offsets): the sharded pool,
+        read split-KV and written shard-locally.
         """
         self._check_paged()
         B, T = tokens.shape
@@ -731,62 +791,69 @@ class TransformerLM:
         positions = offsets.long()[:, None] + offs[None, :]
         validm = offs[None, :] < valid[:, None]
         shared = self._paged_shared(positions, validm, T, block_tables,
-                                    offsets, impl)
+                                    offsets, impl, cache, kv_shard,
+                                    shard_offs)
         x = self.embed(params, tokens, mm_embeds, mm_mask)
         x, kv = self._paged_stack(params, x, positions, shared, cache)
         idx = torch.clamp(valid.long() - 1, 0, T - 1)
         xl = x[torch.arange(B, device=dev), idx][:, None]
         logits = self.head(params, xl)[:, 0]
-        P, ps = cache["k_pages"].shape[1], cache["k_pages"].shape[2]
+        P, ps = _pool_dims(cache["k_pages"], kv_shard)
         dest = _page_dest(block_tables, positions, validm, ps, P)
-        _scatter_pages(cache["k_pages"], kv["k"], dest)
-        _scatter_pages(cache["v_pages"], kv["v"], dest)
+        _scatter_paged(cache["k_pages"], kv["k"], dest, kv_shard)
+        _scatter_paged(cache["v_pages"], kv["v"], dest, kv_shard)
         conf, tok = softmax_confidence_device(logits)
         return conf, tok, cache
 
     def chunk_forward_paged(self, params, cache, win_tokens, win_start,
                             win_valid, block_tables, ctx_lens, *,
                             impl: str = "kernel", mm_embeds=None,
-                            mm_mask=None):
+                            mm_mask=None, kv_shard=None, shard_offs=None):
         """Diffusion-window forward against the paged prefix cache.
         ctx_lens [B] is the committed prefix length per row (0 for padded
         rows — their paged partial is empty and the in-window diagonal
-        keeps logits finite).  Returns (logits [B,c,V] fp32, win_kv)."""
+        keeps logits finite).  Returns (logits [B,c,V] fp32, win_kv).
+        ``kv_shard``/``shard_offs``: as :meth:`prefill_chunk_paged`."""
         self._check_paged()
         B, c = win_tokens.shape
         offs = torch.arange(c, dtype=torch.int64, device=win_tokens.device)
         positions = win_start.long()[:, None] + offs[None, :]
         valid = offs[None, :] < win_valid[:, None]
         shared = self._paged_shared(positions, valid, c, block_tables,
-                                    ctx_lens, impl)
+                                    ctx_lens, impl, cache, kv_shard,
+                                    shard_offs)
         x = self.embed(params, win_tokens, mm_embeds, mm_mask)
         x, kv = self._paged_stack(params, x, positions, shared, cache)
         return self.head(params, x), kv
 
-    def freeze_paged(self, cache, win_kv, block_tables, win_start, n_adv):
+    def freeze_paged(self, cache, win_kv, block_tables, win_start, n_adv,
+                     kv_shard=None):
         """Write the first n_adv[b] window KV entries into the page pool,
-        in place."""
+        in place (shard-locally with ``kv_shard``)."""
         c = win_kv["k"].shape[2]
-        P, ps = cache["k_pages"].shape[1], cache["k_pages"].shape[2]
+        P, ps = _pool_dims(cache["k_pages"], kv_shard)
         offs = torch.arange(c, dtype=torch.int64, device=win_start.device)
         pos = win_start.long()[:, None] + offs[None, :]
         keep = offs[None, :] < n_adv[:, None]
         dest = _page_dest(block_tables, pos, keep, ps, P)
-        _scatter_pages(cache["k_pages"], win_kv["k"], dest)
-        _scatter_pages(cache["v_pages"], win_kv["v"], dest)
+        _scatter_paged(cache["k_pages"], win_kv["k"], dest, kv_shard)
+        _scatter_paged(cache["v_pages"], win_kv["v"], dest, kv_shard)
         return cache
 
     def decode_step_paged(self, params, cache, win_tokens, win_start,
                           win_valid, block_tables, ctx_lens, n_adv, *,
                           impl: str = "kernel", mm_embeds=None,
-                          mm_mask=None):
+                          mm_mask=None, kv_shard=None, shard_offs=None):
         """One fused paged decode iteration: chunk-forward + freeze +
         on-device sampling.  ``n_adv`` [B] is the number of leading window
         KV entries to freeze (known before the step).  Returns (conf [B,c]
-        fp32, tok [B,c] int32, cache) — the cache updated in place."""
+        fp32, tok [B,c] int32, cache) — the cache updated in place.
+        ``kv_shard``/``shard_offs``: as :meth:`prefill_chunk_paged`."""
         logits, win_kv = self.chunk_forward_paged(
             params, cache, win_tokens, win_start, win_valid, block_tables,
-            ctx_lens, impl=impl, mm_embeds=mm_embeds, mm_mask=mm_mask)
-        self.freeze_paged(cache, win_kv, block_tables, win_start, n_adv)
+            ctx_lens, impl=impl, mm_embeds=mm_embeds, mm_mask=mm_mask,
+            kv_shard=kv_shard, shard_offs=shard_offs)
+        self.freeze_paged(cache, win_kv, block_tables, win_start, n_adv,
+                          kv_shard=kv_shard)
         conf, tok = softmax_confidence_device(logits)
         return conf, tok, cache

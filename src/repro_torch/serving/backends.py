@@ -41,6 +41,8 @@ from repro_torch.core.diffusion import softmax_confidence
 from repro_torch.core.latency_model import (CPU_HOST, TPU_V5E,
                                             AnalyticDeviceModel, DeviceSpec,
                                             kv_bytes_per_token, swap_cost_s)
+from repro_torch.distributed.collectives import KVShardSpec
+from repro_torch.launch.mesh import make_kv_mesh
 from repro_torch.models.common import ArchConfig
 from repro_torch.serving.kv_pool import OutOfPages, PagedKVAllocator
 from repro_torch.serving.request import Request
@@ -849,6 +851,19 @@ class ModelBackend:
     (the torch form of the JAX package's donation contract):
     ``kv.k_pages.data_ptr()`` is fixed for the backend's life.
 
+    **Sharded pool** (``kv_shards > 1``): the page count rounds up to a
+    multiple of ``kv_shards``, and the pool splits into ``kv_shards``
+    blocks over the ``kv`` axis of ``kv_mesh`` (default
+    ``make_kv_mesh(kv_shards)``: one card a shard, raising when fewer are
+    visible; ``make_kv_mesh(S, devices=[d] * S)`` puts every shard on one
+    device).  Every decode and chunked-prefill dispatch reads the pool
+    split-KV — the paged kernel once a shard a layer, over that shard's
+    block with its local tables — and merges the partials exactly; every
+    write, the wave prefill's too, stays on its page's shard, and each
+    block's ``data_ptr`` is fixed.  ``device_dispatches`` counts
+    ``kv_shards`` a logical dispatch and ``collective_bytes`` the analytic
+    cross-shard merge traffic (``_split_kv_collective_bytes``).
+
     **Recurrent-slot mode** (ssm, hybrid): recurrent states cannot be
     paged, so these families keep a fixed ``n_slots``-row cache
     (``TransformerLM.init_cache``), updated in place for the backend's life.
@@ -861,10 +876,8 @@ class ModelBackend:
     the rows that did not take part.  The dispatches pull ``[n_slots, c,
     V]`` fp32 logits to the host, which samples them; like the reference,
     this mode counts no dispatches and no host bytes.  The pool's options
-    (pages, prefill mode and budget, prefix cache, host tier) are accepted
-    and unused.
-
-    Not ported yet (raises ``NotImplementedError``): ``kv_shards > 1``.
+    (pages, prefill mode and budget, prefix cache, host tier, shards and
+    mesh) are accepted and unused.
     """
 
     def __init__(self, model, params, n_slots: int = 8, max_len: int = 512,
@@ -875,11 +888,9 @@ class ModelBackend:
                  prefill_mode: str = "chunked",
                  prefill_token_budget: int | None = None,
                  kv_shards: int = 1, prefix_cache: bool = True,
-                 host_kv_pages: int = 0, device="cuda"):
+                 host_kv_pages: int = 0, device="cuda", kv_mesh=None):
         if prefill_mode not in ("chunked", "wave"):
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
-        if kv_shards != 1:
-            raise NotImplementedError("kv_shards > 1 is not ported yet")
         self.device = torch.empty(0, device=device).device   # cuda → cuda:N
         for name, t in params.items():
             if t.device != self.device:
@@ -921,9 +932,18 @@ class ModelBackend:
         if kv_pages is None:
             # mirror the historical dense cache's capacity by default
             kv_pages = n_slots * (-(-max_len // ps))
+        # sharded pool: pages split evenly across shards
+        kv_pages = -(-kv_pages // kv_shards) * kv_shards
         self.kv = PagedKVAllocator(kv_pages, ps, kv_shards=kv_shards)
-        self.kv.init_storage(*model.paged_kv_dims(), dtype=cache_dtype,
-                             device=self.device)
+        self._kv_shard = None
+        if kv_shards > 1:
+            mesh = kv_mesh if kv_mesh is not None else make_kv_mesh(kv_shards)
+            self._kv_shard = KVShardSpec(mesh, kv_shards)
+            self.kv.init_storage(*model.paged_kv_dims(), dtype=cache_dtype,
+                                 shard=self._kv_shard)
+        else:
+            self.kv.init_storage(*model.paged_kv_dims(), dtype=cache_dtype,
+                                 device=self.device)
         self._table_width = self.kv.pages_for(max_len)
         self._n_attn_layers = model.paged_kv_dims()[0]
         # cost-model stand-in for swap-vs-recompute and adaptive prefill
@@ -1156,6 +1176,17 @@ class ModelBackend:
     def _pages_cache(self):
         return {"k_pages": self.kv.k_pages, "v_pages": self.kv.v_pages}
 
+    def _shard_kw(self, rids, padded: int) -> dict:
+        """A sharded dispatch's ``kv_shard`` and the rows' stripe offsets
+        ``shard_offs`` (padded rows: offset 0 — their ctx is 0, so never
+        read); nothing for an unsharded pool."""
+        if self._kv_shard is None:
+            return {}
+        so = np.zeros(padded, np.int32)
+        so[:len(rids)] = self.kv.stripe_offsets(rids)
+        return {"kv_shard": self._kv_shard,
+                "shard_offs": self._t(so, torch.int32)}
+
     def _account_device_dispatch(self, batch: int, tokens: int):
         self.device_dispatches += self.kv_shards
         self.collective_bytes += _split_kv_collective_bytes(
@@ -1192,7 +1223,7 @@ class ModelBackend:
         (conf, tok), _ = self.model.prefill_paged(
             self.params, self._pages_cache(), self._t(toks),
             self._t(lens, torch.int32), self._t(tables, torch.int32),
-            head_mode="sample", impl=self._impl)
+            head_mode="sample", impl=self._impl, kv_shard=self._kv_shard)
         self.prefill_dispatches += 1
         # wave prefill never reads the paged prefix (scatter only)
         self.device_dispatches += self.kv_shards
@@ -1235,7 +1266,8 @@ class ModelBackend:
             val[i] = n
         conf, tok, _ = self.model.prefill_chunk_paged(
             self.params, self._pages_cache(), self._t(toks), self._t(offs),
-            self._t(val), self._t(tables, torch.int32), impl=self._impl)
+            self._t(val), self._t(tables, torch.int32), impl=self._impl,
+            **self._shard_kw([req.rid for req, _, _ in plan], Bp))
         self.prefill_dispatches += 1
         self._account_device_dispatch(Bp, Tp)
         conf, tok = self._to_host(conf, tok)
@@ -1314,7 +1346,8 @@ class ModelBackend:
         st = self._t(s)
         conf, tok, _ = self.model.decode_step_paged(
             self.params, self._pages_cache(), self._t(w), st, self._t(v),
-            self._t(tables, torch.int32), st, self._t(a), impl=self._impl)
+            self._t(tables, torch.int32), st, self._t(a), impl=self._impl,
+            **self._shard_kw(rids, Bp))
         self.decode_dispatches += 1
         self._account_device_dispatch(Bp, c)
         conf, tok = self._to_host(conf, tok)

@@ -227,6 +227,9 @@ class PagedKVAllocator:
     # device-side page pool (None until init_storage; sim backends never set)
     k_pages: object = field(default=None, init=False)
     v_pages: object = field(default=None, init=False)
+    # the pool as blocks: one a shard (an unsharded pool's one tensor)
+    _k_blocks: list = field(default_factory=list, init=False)
+    _v_blocks: list = field(default_factory=list, init=False)
 
     def __post_init__(self):
         assert self.kv_shards >= 1
@@ -354,9 +357,7 @@ class PagedKVAllocator:
         """Evicted-but-attached prefix page → host tier (content survives;
         a later prefix hit swaps it back via ``allocate_prefix``)."""
         if self.has_storage:
-            self._ensure_host_storage()
-            self.host.k_host[:, slot] = self.k_pages[:, page].cpu()
-            self.host.v_host[:, slot] = self.v_pages[:, page].cpu()
+            self._pages_to_host([page], [slot])
         node.tier = "host"
         node.host_slot = slot
         self.stats["swap_out_pages"] += 1
@@ -732,11 +733,7 @@ class PagedKVAllocator:
             return None
         slots = [self.host.alloc_slot() for _ in table]
         if self.has_storage:
-            self._ensure_host_storage()
-            idx = self._index(table)
-            sl = _host_index(slots)
-            self.host.k_host[:, sl] = self.k_pages[:, idx].cpu()
-            self.host.v_host[:, sl] = self.v_pages[:, idx].cpu()
+            self._pages_to_host(table, slots)
         self.stats["swap_out_pages"] += len(table)
         sp = SpilledRequest(slots, self._lens[rid], self._stripe[rid])
         self._spilled[rid] = sp
@@ -895,18 +892,50 @@ class PagedKVAllocator:
         self.release_seized()
 
     # ------------------------------------------------------------------
-    # Device-side page movement (COW copies, host→device swap-ins).
-    # Both are in-place indexed copies into the pool tensors on
-    # pow-2-padded index vectors (padding duplicates the last pair — a
-    # duplicate identical write/copy is a no-op), so the pool's storage
-    # never moves: ``k_pages.data_ptr()`` is stable for the pool's life.
+    # Device-side page movement (COW copies, host→device swap-ins,
+    # device→host spills).  All are in-place indexed copies into the pool
+    # tensors on pow-2-padded index vectors (padding duplicates the last
+    # pair — a duplicate identical write/copy is a no-op), so the pool's
+    # storage never moves: ``k_pages.data_ptr()`` (of every shard's block)
+    # is stable for the pool's life.  A sharded pool routes each global
+    # page to (its shard's block, its local index).
     # ------------------------------------------------------------------
+    def pool_blocks(self):
+        """The pool as (k blocks, v blocks, pages a block): block ``s`` holds
+        global pages ``[s·per, (s+1)·per)``, one block a shard of a sharded
+        pool, the one tensor of an unsharded pool."""
+        return self._k_blocks, self._v_blocks, \
+            self.n_pages // max(len(self._k_blocks), 1)
+
+    def _by_block(self, pages: list):
+        """Global ``pages`` grouped by the block that holds them: ``[(block,
+        positions in pages, local indices), ...]`` (one group for an
+        unsharded pool, whose local indices are the global ones)."""
+        per = self.pool_blocks()[2]
+        groups: dict[int, tuple] = {}
+        for i, page in enumerate(pages):
+            b, local = divmod(int(page), per)
+            pos, loc = groups.setdefault(b, ([], []))
+            pos.append(i)
+            loc.append(local)
+        return [(b, pos, loc) for b, (pos, loc) in sorted(groups.items())]
+
+    def _pages_to_host(self, pages: list, slots: list):
+        """Copy device ``pages`` into host-tier ``slots``, pairwise."""
+        self._ensure_host_storage()
+        ks, vs, _ = self.pool_blocks()
+        for b, pos, loc in self._by_block(pages):
+            idx = self._index(loc, ks[b])
+            sl = _host_index([slots[i] for i in pos])
+            self.host.k_host[:, sl] = ks[b][:, idx].cpu()
+            self.host.v_host[:, sl] = vs[b][:, idx].cpu()
+
     @property
     def page_bytes(self) -> float:
         """Bytes per logical page (K + V across all attention layers)."""
         if not self.has_storage:
             return 0.0
-        k = self.k_pages
+        k = self._k_blocks[0]
         per = k.element_size()
         for i, d in enumerate(k.shape):
             if i != 1:
@@ -920,44 +949,73 @@ class PagedKVAllocator:
             m <<= 1
         return np.asarray(idx + [idx[-1]] * (m - len(idx)), np.int32)
 
-    def _index(self, idx) -> torch.Tensor:
-        return _host_index(idx).to(self.k_pages.device)
+    @staticmethod
+    def _index(idx, block) -> torch.Tensor:
+        return _host_index(idx).to(block.device)
 
     def _device_copy(self, src: list, dst: list):
+        """COW copies ``src[i] → dst[i]``; a destination is on its source's
+        shard (the striping invariant), so each copy stays in one block."""
         from repro_torch.models.transformer import copy_pages
-        copy_pages({"k_pages": self.k_pages, "v_pages": self.v_pages},
-                   self._index(self._pad_pow2(src)),
-                   self._index(self._pad_pow2(dst)))
+        ks, vs, per = self.pool_blocks()
+        for b, pos, loc in self._by_block(dst):
+            lsrc = [src[i] - b * per for i in pos]
+            assert all(0 <= p < per for p in lsrc), \
+                "a COW destination left its source's shard"
+            copy_pages({"k_pages": ks[b], "v_pages": vs[b]},
+                       self._index(self._pad_pow2(lsrc), ks[b]),
+                       self._index(self._pad_pow2(loc), ks[b]))
 
     def _swap_in_device(self, slots: list, pages: list):
         from repro_torch.models.transformer import write_pages
         self._ensure_host_storage()
-        sl = _host_index(self._pad_pow2(list(slots)))
-        write_pages({"k_pages": self.k_pages, "v_pages": self.v_pages},
-                    self._index(self._pad_pow2(list(pages))),
-                    self.host.k_host[:, sl], self.host.v_host[:, sl])
+        ks, vs, _ = self.pool_blocks()
+        for b, pos, loc in self._by_block(pages):
+            sl = _host_index(self._pad_pow2([slots[i] for i in pos]))
+            write_pages({"k_pages": ks[b], "v_pages": vs[b]},
+                        self._index(self._pad_pow2(loc), ks[b]),
+                        self.host.k_host[:, sl], self.host.v_host[:, sl])
 
     def _ensure_host_storage(self):
-        self.host.ensure_storage(self.k_pages.shape, self.k_pages.dtype,
-                                 pin=self.k_pages.is_cuda)
+        k = self._k_blocks[0]
+        self.host.ensure_storage(k.shape, k.dtype, pin=k.is_cuda)
 
     # ------------------------------------------------------------------
     # Device-side page pool (real-model backends)
     # ------------------------------------------------------------------
     def init_storage(self, n_kv_layers: int, n_kv_heads: int, head_dim: int,
-                     dtype=None, *, device="cuda"):
+                     dtype=None, *, device="cuda", shard=None):
         """Allocate the device page pool: [L_attn, P, page_size, KVH, hd].
 
         Each attention layer reads its own contiguous [P, page_size, KVH,
         hd] slice ``k_pages[l]`` — exactly the layout the paged attention
         kernel expects.  Every later write (decode freeze, prefill scatter,
         COW copy, swap-in) updates these two tensors in place.
+
+        With ``shard`` (a :class:`repro_torch.distributed.collectives
+        .KVShardSpec` of ``kv_shards`` shards) the pool is sharded on its
+        page dim: ``k_pages``/``v_pages`` become lists of the shards' blocks
+        ``[L_attn, P/S, page_size, KVH, hd]``, block ``s`` its own tensor on
+        ``shard.devices[s]`` (so each layer's slice of a block is contiguous
+        for the kernel), and ``device`` is unused.
         """
         dtype = torch.float32 if dtype is None else dtype
         shp = (n_kv_layers, self.n_pages, self.page_size, n_kv_heads,
                head_dim)
-        self.k_pages = torch.zeros(shp, dtype=dtype, device=device)
-        self.v_pages = torch.zeros(shp, dtype=dtype, device=device)
+        if shard is None:
+            self.k_pages = torch.zeros(shp, dtype=dtype, device=device)
+            self.v_pages = torch.zeros(shp, dtype=dtype, device=device)
+            self._k_blocks, self._v_blocks = [self.k_pages], [self.v_pages]
+            return self.k_pages, self.v_pages
+        if shard.n_shards != self.kv_shards:
+            raise ValueError(f"{shard.n_shards} mesh shards for a pool of "
+                             f"{self.kv_shards}")
+        blk = (shp[0], self.pages_per_shard) + shp[2:]
+        self.k_pages = [torch.zeros(blk, dtype=dtype, device=d)
+                        for d in shard.devices]
+        self.v_pages = [torch.zeros(blk, dtype=dtype, device=d)
+                        for d in shard.devices]
+        self._k_blocks, self._v_blocks = self.k_pages, self.v_pages
         return self.k_pages, self.v_pages
 
     @property

@@ -6,9 +6,9 @@
 * :class:`FailureInjector` / :class:`SimulatedFailure` — the deterministic
   failure schedule of restart drills, re-exported from
   :mod:`repro_torch.common.faults`.
-
-The reference's ``elastic_shardings`` (restore under another mesh) needs
-the port's sharding module, which is not ported yet.
+* :func:`elastic_shardings` — the specs of a logical-axis tree under
+  another mesh's rules (restoring a checkpoint after the mesh grew or
+  shrank).
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ import numpy as np
 
 from repro_torch.common.faults import FailureInjector, SimulatedFailure
 
-__all__ = ["StragglerMonitor", "FailureInjector", "SimulatedFailure"]
+__all__ = ["StragglerMonitor", "FailureInjector", "SimulatedFailure",
+           "elastic_shardings"]
 
 
 class StragglerMonitor:
@@ -48,3 +49,12 @@ class StragglerMonitor:
     def fleet_p50(self):
         vals = [t for dq in self._times.values() for t in dq]
         return float(np.median(vals)) if vals else float("nan")
+
+
+def elastic_shardings(logical_axes_tree, rules):
+    """Specs for restoring a checkpoint under a (possibly different) mesh:
+    logical axis names are topology-independent, so growing or shrinking
+    the mesh only changes the rules table."""
+    from repro_torch.distributed.sharding import param_specs, use_rules
+    with use_rules(rules):
+        return param_specs(logical_axes_tree)

@@ -31,7 +31,9 @@ def test_every_module_imports_without_jax():
                  "repro_torch.models.encdec", "repro_torch.common.faults",
                  "repro_torch.cluster.engine",
                  "repro_torch.launch.serve_cluster",
-                 "repro_torch.launch.trace_view"):
+                 "repro_torch.launch.trace_view",
+                 "repro_torch.distributed.collectives",
+                 "repro_torch.launch.mesh"):
         assert name in mods
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"

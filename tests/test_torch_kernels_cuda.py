@@ -390,3 +390,44 @@ def test_grouped_matmul_cuda_matches_loop(cuda):
     assert torch.all(got[sum(sizes):] == 0)
     with pytest.raises(ValueError, match="bfloat16"):
         moe.grouped_matmul(rows.float(), w.float(), gs)
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_split_kv_partial_through_the_kernel(cuda, S):
+    """``split_kv_paged_partial`` on an S-shard mesh of one card at
+    chip_smoke.py's shape (a) (bf16, tables from a striped allocator):
+    S kernel launches a call; the combined output within 3e-2 of the plain
+    version and of the plain split-KV version; a ctx-0 row the exact empty
+    partial."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels.ops import combine_flash_partials
+    from repro_torch.launch.mesh import make_kv_mesh
+    from repro_torch.serving.kv_pool import PagedKVAllocator
+
+    B, c, H, KVH, D, ps = 8, 32, 32, 8, 128, 16
+    P = B * 128 + 16
+    kv = PagedKVAllocator(P, ps, kv_shards=S)
+    for rid, n in enumerate(RAGGED_CTX):
+        kv.allocate(rid, n)
+    tables = torch.as_tensor(np.array(kv.batch_tables(range(B), 128)),
+                             dtype=torch.int32, device=cuda)
+    offs = torch.as_tensor(kv.stripe_offsets(range(B)), device=cuda)
+    lens = torch.as_tensor(RAGGED_CTX, dtype=torch.int32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, kp, vp = (torch.randn(s, generator=g, device=cuda).bfloat16()
+                 for s in ((B, c, H, D), (P, ps, KVH, D), (P, ps, KVH, D)))
+    ks = coll.KVShardSpec(make_kv_mesh(S, devices=[cuda] * S), S)
+    kb, vb = coll.shard_pages(kp, ks, dim=0), coll.shard_pages(vp, ks, dim=0)
+    before = cpa.LAUNCHES
+    got = coll.split_kv_paged_partial(q, kb, vb, tables, lens, offs, ks)
+    torch.cuda.synchronize()
+    assert cpa.LAUNCHES == before + S
+    out = combine_flash_partials([got])
+    for want in (cpa.paged_chunk_ref(q, kp, vp, tables, lens),
+                 coll.split_kv_paged_partial(q, kb, vb, tables, lens, offs,
+                                             ks, impl="ref")):
+        w = combine_flash_partials([want])
+        assert float((out - w).abs().max() / w.abs().max()) < 3e-2
+    acc, m, l = got
+    assert torch.all(acc[0] == 0) and torch.all(l[0] == 0)
+    assert torch.all(m[0] == -1e30)
