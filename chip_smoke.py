@@ -84,6 +84,24 @@ Phases, in order (any failed check raises and the script exits non-zero):
    readings of the plain split version as the noise floor), profiled as in
    phase 5 (the grouped products' device time too), then the elastic
    serving run of phase 7;
+8b. expert parallelism: a one-card (data 2, model 4) mesh (every shard
+   this card; 4 of Scout's 16 experts a shard, f split 2 x 4096): (i) one
+   Scout layer (phase 8's weights) at T 256 and 32 through
+   ``moe_block_sharded`` (``training_rules``) and ``moe_block_2d``
+   (``serving_rules(moe_2d=True)``), each against the unsharded sorted path
+   at capacity factor 0 (sharded at the fp32 tolerance, 2d at bf16) and
+   against the plain grouped loop on the same shards; at the configured
+   capacity factor each body's time, its 3 x 8 grouped calls, the pairs it
+   drops and its analytic collective bytes; (ii) phase 8's decode dispatch
+   on the mesh under ``serving_rules(moe_2d=True)`` through the paged
+   kernel, its routing pinned as phase 8's, held at phase 8's limits and
+   the bf16 rule, one dispatch counted (paged launches = layers, grouped
+   calls = 3 x 8 x layers) and profiled; (iii) one training step of Scout
+   at full width, 1 layer (phase 8's layer 0, copied), B 2 x 512, on the
+   mesh under ``training_rules`` against the same step with no mesh (loss
+   and every gradient), ``torch._grouped_mm``'s own backward read, AdamW
+   steps (bf16 state) timed with their peak memory, and the MoE leaves and
+   moments saved and restored under another spec byte-exact;
 9. the vlm family: Qwen2-VL-2B at full width and depth (text only) served
    elastic with chunked prefill and with wave prefill, as in phase 7;
 10. the ssm family: RWKV6-1.6B at full width and depth (24 layers, d_model
@@ -1043,11 +1061,13 @@ MOE_LIMITS = {"logits_rel": 0.2, "conf_rel": 0.12,
 MOE_CONTROL_BREAKS = tuple(MOE_LIMITS)
 
 
-def routed(run, pin=None):
+def routed(run, pin=None, per_layer: int = 1):
     """``run()`` with every MoE layer's router probabilities and own top-k
     experts recorded, call by call; with ``pin`` ([n, T, k]) the i-th call
-    routes to ``pin[i % n]`` instead (gates from its own probabilities,
-    renormalised).  Returns (run's result, probabilities, own experts)."""
+    routes to ``pin[(i // per_layer) % n]`` instead (gates from its own
+    probabilities, renormalised; ``per_layer``: the calls a layer makes,
+    one a shard under the 2d body).  Returns (run's result, probabilities,
+    own experts)."""
     import torch
 
     import repro_torch.models.moe as moe
@@ -1062,7 +1082,7 @@ def routed(run, pin=None):
         probs.append(p)
         ids_own.append(ids)
         if pin is not None:
-            ids = pin[i % len(pin)]
+            ids = pin[(i // per_layer) % len(pin)]
             gates = p.gather(-1, ids.long())
             gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
                                         min=1e-9)
@@ -1226,6 +1246,480 @@ def moe_model_phase(model, params, pool, seed: int) -> dict:
                                       ops=("aten::_grouped_mm",))
     log_profile(f"moe decode ({cfg.name}, ctx {MOE_CTX})", res["profile"],
                 "paged")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# expert-parallel phase (phase 8b): Scout on a one-card (data x model) mesh
+# ---------------------------------------------------------------------------
+
+# The mesh's every shard is this card: (data 2, model 4), so each shard
+# holds 4 of Scout's 16 experts, and the 2d body splits f into 2 x 4096.
+# The block level runs one Scout layer (phase 8's layer 0) on the token
+# counts of a decode dispatch and a prefill chunk; the model level phase
+# 8's decode dispatch; the training level one step of Scout at full width
+# cut to 1 layer (phase 8's layer 0, copied), B 2 x 512, bf16 AdamW state
+# (the reference's launch/specs.py).  One card moves no collective bytes:
+# they are the analytic ring all-reduce's, summed over the devices.
+EP_MESH = (2, 4)
+EP_TOKENS = (("decode", 256), ("prefill_chunk", 32))
+EP_TRAIN_B, EP_TRAIN_T = 2, 512
+EP_GRAD_NOISE = 1e-6    # tests/test_torch_training.py's noise floor
+
+
+def ep_mesh():
+    import torch
+
+    from repro_torch.launch.mesh import Mesh
+    n = EP_MESH[0] * EP_MESH[1]
+    return Mesh(("data", "model"), EP_MESH, (torch.device(DEVICE),) * n)
+
+
+def ep_rules():
+    """(body name, body, the rules that pick it in ``moe_block``)."""
+    from repro_torch.distributed.sharding import serving_rules, training_rules
+    from repro_torch.models import moe
+    return (("sharded", moe.moe_block_sharded, training_rules()),
+            ("2d", moe.moe_block_2d, serving_rules(moe_2d=True)))
+
+
+def ep_collective_bytes(body: str, T: int, d: int) -> int:
+    """The bytes a ring all-reduce of each body's fp32 ``y`` sends, summed
+    over the devices: (n - 1) x 2 x its bytes a group of n.  sharded: one
+    group a data row over the model axis, ``[T/D, d]``; 2d: one group of
+    every device, ``[T, d]``."""
+    D, M = EP_MESH
+    if body == "sharded":
+        return D * (M - 1) * 2 * (T // D) * d * 4
+    return (D * M - 1) * 2 * T * d * 4
+
+
+def ep_dropped(cfg, x, router, body: str) -> int:
+    """The (token, expert) pairs each body drops at ``cfg``'s capacity:
+    over every data row (sharded) or once (2d), each model shard keeps at
+    most its capacity of its experts' pairs."""
+    import torch
+
+    from repro_torch.models import moe
+    D, M = EP_MESH
+    E_loc = cfg.n_experts // M
+    rows = x.reshape(D, -1, x.shape[-1]) if body == "sharded" else x[None]
+    out = 0
+    for r in rows:
+        ids = moe._route(r, router, cfg.top_k)[1].reshape(-1)
+        n = torch.bincount(torch.div(ids, E_loc, rounding_mode="floor"),
+                           minlength=M)
+        C = moe.capacity(r.shape[0], cfg.top_k, cfg.capacity_factor, M)
+        out += int(torch.clamp(n - C, min=0).sum())
+    return out
+
+
+def ep_block_level(cfg, params, seed: int, layer_rows) -> list[dict]:
+    """Phase 8b (i): each body on one Scout layer against the unsharded
+    ``_moe_local`` with capacity factor 0 (sharded: the same up to fp32
+    order; 2d: the bf16 tolerance, each f-partial rounded) and against the
+    plain grouped loop on the same shards; then, at the configured capacity
+    factor, each body's median CUDA-event time beside the unsharded layer's
+    (this run's and phase 3b's), its grouped calls (3 a shard), the pairs
+    it drops and its analytic collective bytes, and one call under
+    ``set_sync_debug_mode("error")``."""
+    import torch
+
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.models import moe
+
+    mesh = ep_mesh()
+    n_shards = len(mesh.devices)
+    p = {k: params[f"blocks/pos0/ffn/{k}"][0]
+         for k in ("router", "w_gate", "w_up", "w_down")}
+    w = (p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    cfg0 = cfg.replace(capacity_factor=0.0)
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 8)
+    out = []
+    for tokens, T in EP_TOKENS:
+        x = torch.randn((1, T, cfg.d_model), generator=g,
+                        device=DEVICE).to(torch.bfloat16)
+        whole0 = moe._moe_local(x[0], *w, cfg=cfg0)
+        whole_ms = time_ms(lambda: moe._moe_local(x[0], *w, cfg=cfg),
+                           iters=10)
+        phase3b = next((r["layer_ms"] for r in layer_rows if r["T"] == T),
+                       None)
+        for body, fn, rules in ep_rules():
+            with use_rules(rules, mesh):
+                calls = moe.GROUPED_CALLS
+                got0 = fn(p, cfg0, x)[0]
+                torch.cuda.synchronize()
+                n_calls = moe.GROUPED_CALLS - calls
+                if n_calls != 3 * n_shards:
+                    raise AssertionError(f"ep {body} T {T}: {n_calls} "
+                                         f"grouped calls, not 3 x "
+                                         f"{n_shards}")
+                exact = moe.grouped_matmul
+                moe.grouped_matmul = moe.grouped_matmul_loop
+                try:
+                    loop0 = fn(p, cfg0, x)[0]
+                finally:
+                    moe.grouped_matmul = exact
+                got = fn(p, cfg, x)[0]
+                ms = time_ms(lambda: fn(p, cfg, x), iters=10)
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    fn(p, cfg, x)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            scale = float(whole0.float().abs().max())
+            rel = float((got0.float() - whole0.float()).abs().max()) / scale
+            rel_loop = float((got0.float() - loop0.float()).abs().max()) \
+                / scale
+            tol = FP32_TOL if body == "sharded" else BF16_TOL
+            for what, r, lim in (("the unsharded layer", rel, tol),
+                                 ("the plain grouped loop", rel_loop,
+                                  BF16_TOL)):
+                if not r <= lim:
+                    raise AssertionError(f"ep {body} T {T}: {r} from {what}"
+                                         f" (limit {lim})")
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"ep {body} T {T}: non-finite output")
+            row = {"tokens": tokens, "T": T, "body": body,
+                   "mesh": list(EP_MESH),
+                   "rel_err_vs_unsharded_cf0": rel,
+                   "bit_equal_to_unsharded_cf0": bool(torch.equal(got0,
+                                                                  whole0)),
+                   "rel_err_vs_loop_cf0": rel_loop, "limit": tol,
+                   "grouped_calls": n_calls,
+                   "capacity_factor": cfg.capacity_factor,
+                   "pairs_dropped": ep_dropped(cfg, x[0], w[0], body),
+                   "rel_err_cf_vs_cf0": float(
+                       (got.float() - got0.float()).abs().max()) / scale,
+                   "ms": ms, "unsharded_ms": whole_ms,
+                   "unsharded_ms_phase3b": phase3b,
+                   "collective_bytes_analytic": ep_collective_bytes(
+                       body, T, cfg.d_model),
+                   "collective_bytes_this_card": 0, "sync_free": True}
+            out.append(row)
+            log(f"ep {body} (mesh data {EP_MESH[0]} x model {EP_MESH[1]}) "
+                f"T {T}: vs unsharded cf 0 rel err {rel:.3e} (bit-equal "
+                f"{row['bit_equal_to_unsharded_cf0']}, limit {tol}), vs the "
+                f"plain loop {rel_loop:.3e}; {n_calls} grouped calls; at cf "
+                f"{cfg.capacity_factor}: {row['pairs_dropped']} pairs "
+                f"dropped, {ms:.4f} ms against the unsharded layer's "
+                f"{whole_ms:.4f} ms (phase 3b {phase3b}); analytic "
+                f"collective bytes {row['collective_bytes_analytic']} (this "
+                f"card moves none); no host sync")
+        del x, whole0
+    return out
+
+
+def ep_model_level(model, params, seed: int, moe_model_res: dict) -> dict:
+    """Phase 8b (ii): phase 8's decode dispatch under ``serving_rules(
+    moe_2d=True)`` on the mesh (every MoE layer the 2d body, the paged
+    kernel for attention), its routing pinned to the plain path's experts
+    as phase 8 pins it: held at MOE_LIMITS against the plain path and to
+    the bf16 rule (a token may differ only where the plain top-1/top-2 gap
+    is under the bf16 tolerance), beside the unsharded kernel path pinned
+    the same way; with its own routing, the (token, layer) pairs whose
+    top-1 expert differs from the unsharded kernel path's (a reading).
+    The counted run: one ``decode_step_paged`` on the mesh, counts set to 0
+    just before it (paged launches = layers, grouped calls = 3 x shards x
+    layers).  Then profiled as phase 8's dispatch."""
+    import torch
+
+    from repro_torch.distributed.sharding import serving_rules, use_rules
+    from repro_torch.kernels import chunked_paged_attn as cpa
+    from repro_torch.models import moe
+
+    cfg = model.cfg
+    L = cfg.n_layers
+    mesh = ep_mesh()
+    n_shards = len(mesh.devices)
+    rules = serving_rules(moe_2d=True)
+    cache, tables = make_pool(model, seed)
+    win, start, valid, n_adv = decode_inputs(model, [MOE_CTX] * MODEL_B,
+                                             seed)
+
+    def head_only(impl):
+        conf, tok, _ = model.decode_step_paged(params, cache, win, start,
+                                               valid, tables, start, n_adv,
+                                               impl=impl)
+        return conf, tok
+
+    def dispatch(impl, pin=None, ep=False):
+        def run():
+            conf, tok = head_only(impl)
+            logits, _ = model.chunk_forward_paged(
+                params, cache, win, start, valid, tables, start, impl=impl)
+            return conf, tok, logits
+
+        with use_rules(rules if ep else None, mesh if ep else None):
+            (conf, tok, logits), probs, ids = routed(
+                run, pin, n_shards if ep else 1)
+        per = n_shards if ep else 1
+        if len(probs) != 2 * L * per:
+            raise AssertionError(f"ep model: {len(probs)} routings, not "
+                                 f"2 x {L} x {per}")
+        for t in (conf, logits):
+            if not torch.isfinite(t).all():
+                raise AssertionError("ep model: non-finite output")
+        return conf, tok, logits, torch.stack(ids[L * per::per])
+
+    plain = dispatch("ref")
+    kernel = dispatch("kernel", pin=plain[3])
+    ep = dispatch("kernel", pin=plain[3], ep=True)
+    kernel_free = dispatch("kernel")
+    ep_free = dispatch("kernel", ep=True)
+    torch.cuda.synchronize()
+    readings, margin_of, _, lr_std = decode_readings(*plain[:3])
+    ep_r, k_r = readings(*ep[:3]), readings(*kernel[:3])
+    n_diff, max_gap, margin = margin_of(ep[1])
+    flips = ep_free[3][..., 0] != kernel_free[3][..., 0]
+    cpa.LAUNCHES = cpa.MERGE_LAUNCHES = 0
+    moe.GROUPED_CALLS = 0
+    with use_rules(rules, mesh):
+        head_only("kernel")
+    torch.cuda.synchronize()
+    counted = {"kernel_launches": cpa.LAUNCHES,
+               "merge_launches": cpa.MERGE_LAUNCHES,
+               "grouped_calls": moe.GROUPED_CALLS}
+    if counted["kernel_launches"] != L or \
+            counted["grouped_calls"] != 3 * n_shards * L:
+        raise AssertionError(f"ep model: counted {counted}, not {L} paged "
+                             f"launches and 3 x {n_shards} x {L} grouped "
+                             f"calls")
+    res = {"arch": cfg.name, "layers": L, "B": MODEL_B, "c": MODEL_C,
+           "ctx": MOE_CTX, "mesh": list(EP_MESH), "rules": "serving_rules("
+           "moe_2d=True)", "routing": "pinned to the plain path's experts",
+           "logits_std_plain": lr_std, "ep_vs_plain": ep_r,
+           "unsharded_kernel_vs_plain": k_r,
+           "ep_vs_unsharded_kernel": {
+               "logits_rel": float((ep[2] - kernel[2]).abs().max()) / lr_std,
+               "tokens_differ": int((ep[1] != kernel[1]).sum())},
+           "tokens_differ": n_diff, "max_gap_where_differ": max_gap,
+           "gap_margin": margin, "limits": MOE_LIMITS,
+           "own_routing_expert_flips_vs_unsharded": int(flips.sum()),
+           "routed_pairs": flips.numel(), **counted}
+    log(f"ep model decode_step_paged ({cfg.name}, {L} layers, B {MODEL_B}, "
+        f"c {MODEL_C}, ctx {MOE_CTX}) on the mesh under serving_rules("
+        f"moe_2d=True), routing pinned: tokens differ {n_diff} (largest "
+        f"gap where they differ {max_gap:.4f}, margin {margin}); own "
+        f"routing: top-1 differs from the unsharded kernel path in "
+        f"{res['own_routing_expert_flips_vs_unsharded']} of {flips.numel()}"
+        f" (token, layer) pairs; one counted dispatch: {counted}")
+    for key, lim in MOE_LIMITS.items():
+        log(f"  {key} (pinned): mesh {ep_r[key]:.4f}  unsharded kernel "
+            f"{k_r[key]:.4f}  limit {lim}")
+    if n_diff and not margin > 0:
+        raise AssertionError("ep model: a token differs where its "
+                             "top-1/top-2 gap exceeds the bf16 tolerance")
+    for key, lim in MOE_LIMITS.items():
+        if not ep_r[key] < lim:
+            raise AssertionError(f"ep model: {key} {ep_r[key]} >= {lim}")
+
+    def profiled(impl):
+        with use_rules(rules, mesh):
+            conf, tok = head_only(impl)
+        return conf.cpu(), tok.cpu()
+
+    res["profile"] = profile_dispatch(profiled, "paged_chunk_attn", 5, 3,
+                                      ops=("aten::_grouped_mm",))
+    base = moe_model_res["profile"]
+    res["profile_unsharded_phase8"] = {
+        k: base[k] for k in ("wall_ms_kernel", "device_ms_per_dispatch",
+                             "device_busy_share", "kernel_ms_per_dispatch",
+                             "device_kernels_per_dispatch")}
+    log_profile(f"ep decode ({cfg.name}, ctx {MOE_CTX}, mesh)",
+                res["profile"], "paged")
+    log(f"  phase 8's unsharded dispatch: wall {base['wall_ms_kernel']} ms,"
+        f" device {base['device_ms_per_dispatch']:.2f} ms, busy share "
+        f"{base['device_busy_share']:.3f}, "
+        f"{base['device_kernels_per_dispatch']:.0f} kernels")
+    del cache, tables
+    return res
+
+
+def ep_layer_params(params, n_layers: int = 1) -> dict:
+    """A copy of the first ``n_layers`` of a model's params (the stacked
+    ``blocks/…`` leaves cut, the others whole)."""
+    return {k: (v[:n_layers] if k.startswith("blocks/") else v).clone()
+            for k, v in params.items()}
+
+
+def ep_train_level(cfg, params, seed: int, workdir: Path) -> dict:
+    """Phase 8b (iii): one training step of Scout at full width, 1 layer
+    (``params``: phase 8's layer 0, copied), capacity factor 0, under
+    ``training_rules`` on the mesh against the same step with no mesh (the
+    loss, and each leaf's gradient within the bf16 tolerance relative to
+    its largest value; a leaf that is rounding noise on both sides, the
+    top-1 router, counts as equal); ``torch._grouped_mm``'s own backward
+    (dX at the rows past the last group: what the wrapper masks); then a
+    step with AdamW (bf16 state) on the mesh, timed, its peak memory, and
+    its MoE leaves and their moments saved and restored under another spec
+    (``elastic_shardings`` of swapped rules) byte-exact, piece by piece."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.sharding import (NamedSharding,
+                                                  shard_tensor,
+                                                  training_rules,
+                                                  unshard_tensor, use_rules)
+    from repro_torch.models import build_model, moe
+    from repro_torch.training import AdamW, AdamWConfig, CheckpointManager
+    from repro_torch.training.fault_tolerance import elastic_shardings
+    from repro_torch.training.objectives import diffusion_masks
+    from repro_torch.training.train_loop import (make_train_step,
+                                                 step_generator)
+
+    mesh = ep_mesh()
+    model = build_model(cfg)
+    n_params = sum(t.numel() for t in params.values())
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        4, cfg.vocab_size - 8, (EP_TRAIN_B, EP_TRAIN_T)), device=DEVICE)}
+    masks = diffusion_masks(step_generator(seed, 0, DEVICE), EP_TRAIN_B,
+                            EP_TRAIN_T, cfg.block_size)
+    rules = training_rules()
+
+    # _grouped_mm's own backward at one layer's w_gate, 4 groups of 64 of
+    # 512 rows: dX past the last group, unmasked
+    rows = torch.randn((512, cfg.d_model), device=DEVICE,
+                       dtype=torch.bfloat16).requires_grad_()
+    offs = torch.tensor([64, 128, 192, 256], dtype=torch.int32,
+                        device=DEVICE)
+    w_gate = params["blocks/pos0/ffn/w_gate"][0, :4]
+    dx, = torch.autograd.grad(torch._grouped_mm(rows, w_gate, offs=offs),
+                              rows, torch.ones((512, cfg.moe_ff),
+                                               device=DEVICE,
+                                               dtype=torch.bfloat16))
+    raw_past = dx[256:].float()
+    raw_dx = {"rows_past_groups": 256,
+              "nonzero": int((raw_past != 0).sum()),
+              "non_finite": int((~torch.isfinite(raw_past)).sum())}
+    del rows, dx, raw_past
+
+    def grads(on_mesh):
+        step = make_train_step(model, GradsOut())
+        with use_rules(rules if on_mesh else None, mesh if on_mesh else None):
+            _, _, out = step(params, None, batch, masks=masks)
+        torch.cuda.synchronize()
+        return float(out["loss"]), out["grads"]
+
+    calls = moe.GROUPED_CALLS
+    loss_mesh, g_mesh = grads(True)
+    calls = moe.GROUPED_CALLS - calls
+    # remat runs each layer's forward again in the backward
+    want_calls = 3 * len(mesh.devices) * cfg.n_layers * (1 + cfg.remat)
+    if calls != want_calls:
+        raise AssertionError(f"ep train: {calls} grouped calls, not "
+                             f"{want_calls}")
+    loss_plain, g_plain = grads(False)
+    floor = EP_GRAD_NOISE * max(float(g.float().abs().max())
+                                for g in g_plain.values())
+    rel, noise = {}, []
+    for k, g in g_plain.items():
+        scale = float(g.float().abs().max())
+        err = float((g_mesh[k].float() - g.float()).abs().max())
+        if scale < floor:
+            noise.append(k)
+            rel[k] = 0.0 if float(g_mesh[k].float().abs().max()) < floor \
+                else 1.0
+        else:
+            rel[k] = err / scale
+        if not torch.isfinite(g_mesh[k]).all():
+            raise AssertionError(f"ep train: non-finite gradient of {k}")
+    del g_mesh, g_plain
+    torch.cuda.empty_cache()
+    worst = max(rel, key=rel.get)
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "B": EP_TRAIN_B, "T": EP_TRAIN_T, "mesh": list(EP_MESH),
+           "capacity_factor": cfg.capacity_factor,
+           "loss_mesh": loss_mesh, "loss_plain": loss_plain,
+           "grad_rel_by_leaf": rel, "grad_rel_max": rel[worst],
+           "grad_rel_worst_leaf": worst, "noise_leaves": noise,
+           "grad_tol": BF16_TOL, "grouped_calls_mesh_step": calls,
+           "raw_grouped_mm_backward_dx": raw_dx}
+    log(f"ep train {cfg.name} ({cfg.n_layers} layer, full width, {n_params}"
+        f" params, B {EP_TRAIN_B} x T {EP_TRAIN_T}) under training_rules on"
+        f" the mesh: loss {loss_mesh:.6f} vs no mesh {loss_plain:.6f}; "
+        f"gradients' largest rel err {rel[worst]:.3e} ({worst}), noise "
+        f"leaves {noise}; {calls} grouped calls in the forward and its "
+        f"recomputation (remat {cfg.remat}); "
+        f"_grouped_mm's own dX past the last group: {raw_dx}")
+    if not abs(loss_mesh - loss_plain) <= BF16_TOL * max(1.0,
+                                                         abs(loss_plain)):
+        raise AssertionError(f"ep train: loss {loss_mesh} vs {loss_plain}")
+    if not rel[worst] < BF16_TOL:
+        raise AssertionError(f"ep train: gradient of {worst} off by "
+                             f"{rel[worst]}")
+
+    # a step with AdamW on the mesh: wall and peak memory
+    opt = AdamW(AdamWConfig(state_dtype="bfloat16"))
+    state = opt.init(params)
+    step = make_train_step(model, opt)
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2):
+        t0 = time.perf_counter()
+        with use_rules(rules, mesh):
+            _, _, metrics = step(params, state, batch, masks=masks)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    res.update({"step_wall_s": walls, "step_loss": float(metrics["loss"]),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "param_bytes": sum(t.numel() * t.element_size()
+                                   for t in params.values())})
+    log(f"  AdamW (bf16 state) steps on the mesh: wall {walls} s, max "
+        f"memory allocated {res['max_memory_allocated']} B (params "
+        f"{res['param_bytes']} B)")
+
+    # the MoE leaves and their moments, saved and restored under another
+    # spec: (None, "data", "model", None) for the expert stacks
+    names = [f"blocks/pos0/ffn/{k}" for k in moe.axes_moe(cfg)]
+    axes = {n: ("layers",) + moe.axes_moe(cfg)[n.rsplit("/", 1)[1]]
+            for n in names}
+    tree = {"params": {n: params[n] for n in names},
+            "opt": {n: {m: state["mu"][n][m] for m in ("m", "v")}
+                    for n in names}}
+    saved = {n: tree["params"][n] for n in names}
+    saved.update({f"{n}/{m}": tree["opt"][n][m] for n in names
+                  for m in ("m", "v")})
+    new_specs = elastic_shardings(axes, training_rules(
+        data_axes=("model",), model_axis="data"))
+    shardings = {"params": {n: NamedSharding(mesh, new_specs[n])
+                            for n in names},
+                 "opt": {n: {m: NamedSharding(mesh, new_specs[n])
+                             for m in ("m", "v")} for n in names}}
+    mgr = CheckpointManager(str(workdir / "ep"), async_save=False)
+    t0 = time.perf_counter()
+    mgr.save(1, tree)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, step_no = mgr.restore_latest(tree, shardings=shardings)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = {n: back["params"][n] for n in names}
+    got.update({f"{n}/{m}": back["opt"][n][m] for n in names
+                for m in ("m", "v")})
+    n_bytes, n_pieces = 0, 0
+    for key, pieces in got.items():
+        spec = new_specs[key if key in new_specs else key.rsplit("/", 1)[0]]
+        live = saved[key]
+        for p, q in zip(pieces, shard_tensor(live, mesh, spec)):
+            if not (p.dtype == q.dtype and torch.equal(
+                    p.view(torch.int16), q.view(torch.int16))):
+                raise AssertionError(f"ep restore: a piece of {key} differs")
+            n_pieces += 1
+        if not torch.equal(unshard_tensor(pieces, mesh, spec)
+                           .view(torch.int16), live.view(torch.int16)):
+            raise AssertionError(f"ep restore: {key} differs")
+        n_bytes += live.numel() * live.element_size()
+    res["restore"] = {"step": step_no, "specs": {n: list(new_specs[n])
+                                                 for n in names},
+                      "leaves": len(got), "pieces": n_pieces,
+                      "bytes": n_bytes, "save_s": save_s,
+                      "restore_s": restore_s, "byte_exact": True}
+    log(f"  checkpoint of the MoE leaves and moments ({len(got)} leaves, "
+        f"{n_bytes} B): saved in {save_s:.2f} s, restored under "
+        f"{res['restore']['specs']} in {restore_s:.2f} s, {n_pieces} "
+        f"pieces byte-exact")
     return res
 
 
@@ -3625,8 +4119,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     runs.append(serve_run(model, params, "elastic", elastic_reqs(cfg),
                           max_len=1024))
+    torch.cuda.empty_cache()
+    log_phase("8b: Llama-4 Scout expert-parallel")
+    t0 = time.perf_counter()
+    ep_res = {"block": ep_block_level(cfg, params, args.seed, moe_rows),
+              "model": ep_model_level(model, params, args.seed,
+                                      moe_model_res)}
+    layer0 = ep_layer_params(params)
     del model, params
     free(cfg.name)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_ep_"))
+    try:
+        ep_res["train"] = ep_train_level(
+            cfg.replace(n_layers=1, capacity_factor=0.0), layer0, args.seed,
+            workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del layer0
+    free(f"{cfg.name} 1-layer training")
+    ep_res["wall_s"] = time.perf_counter() - t0
+    log(f"phase 8b: {ep_res['wall_s']:.3f} s wall")
 
     log_phase("9: Qwen2-VL-2B")
     # Qwen2-VL-2B at full width and depth, text only
@@ -3700,16 +4212,18 @@ def main() -> int:
         "replaces": "src/repro/kernels/chunked_paged_attn.py:85",
         "launches": sum(r["kernel_launches"]
                         for r in runs + cluster_runs + split_runs)
-        + encdec_res["kernel_launches"],
+        + encdec_res["kernel_launches"] + ep_res["model"]["kernel_launches"],
         "merge_launches": sum(r["merge_launches"]
                               for r in runs + cluster_runs + split_runs)
-        + encdec_res["merge_launches"],
+        + encdec_res["merge_launches"] + ep_res["model"]["merge_launches"],
         "launches_by_site": {"serving runs": sum(r["kernel_launches"]
                                                  for r in runs),
                              "cluster runs": sum(r["kernel_launches"]
                                                  for r in cluster_runs),
                              "sharded pool runs": sum(
                                  r["kernel_launches"] for r in split_runs),
+                             "expert-parallel runs":
+                                 ep_res["model"]["kernel_launches"],
                              "encdec decoder reads":
                                  encdec_res["kernel_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern_rows),
@@ -3751,6 +4265,7 @@ def main() -> int:
              "kernels": kernels, "moe_layer": moe_rows,
              "model": model_res, "profile": profile_res,
              "prefill_model": prefill_res, "moe_model": moe_model_res,
+             "expert_parallel": ep_res,
              "cluster": cluster_res, "split_kv": split_res,
              "ssm": ssm_res, "hybrid": hybrid_res, "serve": runs,
              "wave_vs_chunked": wave_vs_chunked, "train": train_res,

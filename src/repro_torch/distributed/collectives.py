@@ -7,6 +7,9 @@
   their own shard.
 * :func:`split_kv_attention` — sequence-parallel attention over a dense KV
   cache split along its sequence axis.
+* :func:`psum` — the sum over a subset of the mesh axes (the
+  expert-parallel MoE's: over the model axis, or over the data axes and
+  the model axis together).
 * :func:`compressed_psum` / :func:`compressed_grad_sync` — int8
   stochastic-rounding gradient reduction: per-block scales, quantize → sum
   in int32 → dequantize, 1 byte an element (2× fewer than bf16).
@@ -48,6 +51,25 @@ def _all_reduce(xs, op: str):
         x = x.to(dev)
         out = torch.maximum(out, x) if op == "max" else out + x
     return [out.to(x.device) for x in xs]
+
+
+def psum(xs, mesh, axes):
+    """Sum of the shards' tensors over the mesh axes ``axes`` (a name or a
+    tuple of names): ``xs`` holds one tensor a device of ``mesh.devices``
+    (row-major); the devices that differ only along ``axes`` form a group,
+    and each gets its group's :func:`_all_reduce` sum on its device."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    keep = [k for k, a in enumerate(mesh.axis_names) if a not in axes]
+    groups: dict = {}
+    for i in range(len(xs)):
+        c = mesh.coords(i)
+        groups.setdefault(tuple(c[k] for k in keep), []).append(i)
+    out = [None] * len(xs)
+    for members in groups.values():
+        for i, y in zip(members, _all_reduce([xs[i] for i in members],
+                                             "sum")):
+            out[i] = y
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -7,10 +7,15 @@ with no rules installed every lookup gives the empty spec.  This mirrors
 the t5x/MaxText logical-axis-rules design of the JAX package.
 
 A spec is a plain tuple with one entry a dimension: a mesh-axis name, a
-tuple of names, or ``None`` (the counterpart of ``PartitionSpec``).  The
-port places tensors itself — the sharded page pool
+tuple of names, or ``None`` (the counterpart of ``PartitionSpec``); a
+:class:`NamedSharding` is a mesh and a spec.  The port places tensors
+itself: :func:`shard_tensor` cuts a tensor into the pieces of a (mesh,
+spec), one a device of the mesh, and :func:`unshard_tensor` puts pieces
+back together.  The expert-parallel MoE bodies
+(:mod:`repro_torch.models.moe`) and ``checkpoint.restore(shardings=)``
+place through them; the sharded page pool
 (:meth:`repro_torch.serving.kv_pool.PagedKVAllocator.init_storage`) puts
-its blocks on the devices of its ``KVShardSpec`` — so :func:`shard`, the
+its blocks on the devices of its ``KVShardSpec``.  So :func:`shard`, the
 JAX package's sharding hint on activations, is the identity: there is no
 compiler for a hint to reach, and the models do not call it.
 """
@@ -226,3 +231,87 @@ def param_specs(logical_tree):
     rules = current_rules()
     return _map_specs(lambda axes: () if rules is None
                       else rules.spec(*axes), logical_tree)
+
+
+# ---------------------------------------------------------------------------
+# Placement
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """How a tensor lies over a mesh: the mesh and a spec (the counterpart
+    of ``jax.sharding.NamedSharding``)."""
+
+    mesh: object
+    spec: tuple
+
+
+def _dim_axes(spec, ndim: int) -> list:
+    """The mesh axes each of ``ndim`` dimensions is split over (a tuple a
+    dimension; a spec shorter than ``ndim`` leaves the rest whole)."""
+    spec = tuple(spec)
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec} has more entries than the tensor's "
+                         f"{ndim} dimensions")
+    spec += (None,) * (ndim - len(spec))
+    return [() if s is None else (s,) if isinstance(s, str) else tuple(s)
+            for s in spec]
+
+
+def _block(mesh, coords, axes) -> tuple:
+    """(block index, block count) of the device at ``coords`` along a
+    dimension split over ``axes``, the first axis major."""
+    idx, n = 0, 1
+    for a in axes:
+        k = mesh.axis_names.index(a)
+        idx, n = idx * mesh.shape[k] + coords[k], n * mesh.shape[k]
+    return idx, n
+
+
+def shard_tensor(x, mesh, spec) -> list:
+    """``x`` cut into its pieces under (``mesh``, ``spec``): one piece a
+    device of ``mesh.devices`` (row-major over the mesh), on that device.
+    A dimension the spec names is split into equal contiguous blocks over
+    its axes; the devices that differ only along axes the spec does not
+    name hold the same piece.  On the device where ``x`` lies a piece is a
+    view of ``x`` (strided where the split dimension is not the first), so
+    one card costs no copy."""
+    dims = _dim_axes(spec, x.ndim)
+    pieces = []
+    for i, dev in enumerate(mesh.devices):
+        c = mesh.coords(i)
+        piece = x
+        for dim, axes in enumerate(dims):
+            if axes:
+                b, n = _block(mesh, c, axes)
+                if x.shape[dim] % n:
+                    raise ValueError(f"dimension {dim} of {tuple(x.shape)} "
+                                     f"does not split into {n} blocks")
+                size = x.shape[dim] // n
+                piece = piece.narrow(dim, b * size, size)
+        pieces.append(piece.to(dev))
+    return pieces
+
+
+def unshard_tensor(pieces, mesh, spec):
+    """The tensor whose pieces under (``mesh``, ``spec``) these are
+    (:func:`shard_tensor`), on the first piece's device: each block is
+    taken from the first device that holds it."""
+    dims = _dim_axes(spec, pieces[0].ndim)
+    named = {a for axes in dims for a in axes}
+    c0 = mesh.coords(0)
+    out = pieces[0].new_empty([s * _block(mesh, c0, axes)[1] for s, axes
+                               in zip(pieces[0].shape, dims)])
+    for i, piece in enumerate(pieces):
+        c = mesh.coords(i)
+        if any(c[k] for k, a in enumerate(mesh.axis_names)
+               if a not in named):
+            continue
+        view = out
+        for dim, axes in enumerate(dims):
+            if axes:
+                size = piece.shape[dim]
+                view = view.narrow(dim, _block(mesh, c, axes)[0] * size,
+                                   size)
+        view.copy_(piece)
+    return out

@@ -50,6 +50,14 @@ class Mesh:
     def size(self, axis: str) -> int:
         return self.shape[self.axis_names.index(axis)]
 
+    def coords(self, i: int) -> tuple:
+        """The mesh coordinates of ``devices[i]`` (row-major)."""
+        out = []
+        for n in reversed(self.shape):
+            i, r = divmod(i, n)
+            out.append(r)
+        return tuple(reversed(out))
+
     def axis_devices(self, axis: str) -> tuple:
         """The devices along ``axis``, every other axis at index 0: shard
         ``s`` of a mesh axis lives on ``axis_devices(axis)[s]``."""

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.distributed.sharding import (current_mesh, current_rules,
+                                              use_rules)
 from repro_torch.models.common import ArchConfig, dense_init
 
 NEG_INF = -1e30
@@ -240,10 +242,19 @@ def _kind_mask(kind: str, qp, kp, block_size: int):
 def _checkpointed(fn, *args):
     """``fn(*args)`` under ``torch.utils.checkpoint`` (the torch form of
     ``jax.checkpoint``: activations are recomputed in the backward pass)
-    when autograd records this call, plainly otherwise."""
+    when autograd records this call, plainly otherwise.  The recomputation
+    runs under the sharding rules and mesh installed at the forward: the
+    backward may run after the caller's ``use_rules`` has exited, or on
+    autograd's device thread, where the per-thread rules are unset."""
     if torch.is_grad_enabled() and any(
             isinstance(a, torch.Tensor) and a.requires_grad for a in args):
-        return torch.utils.checkpoint.checkpoint(fn, *args,
+        rules, mesh = current_rules(), current_mesh()
+
+        def under_rules(*a):
+            with use_rules(rules, mesh):
+                return fn(*a)
+
+        return torch.utils.checkpoint.checkpoint(under_rules, *args,
                                                  use_reentrant=False)
     return fn(*args)
 

@@ -13,6 +13,14 @@ state}`` writes the files the reference writes for its own state, and
 either package restores the other's checkpoints.  bfloat16 is stored as
 its uint16 bits (through a torch view; no bfloat16-aware numpy needed).
 
+:func:`restore` places each leaf whose sharding is given
+(``shardings``, a tree of
+:class:`repro_torch.distributed.sharding.NamedSharding` beside
+``like_tree``'s leaves) as its pieces on the sharding's mesh
+(:func:`repro_torch.distributed.sharding.shard_tensor`), so a checkpoint
+restores under another mesh than the one it was saved from; the others come
+back whole.
+
 A step is written to ``step_%09d.tmp`` and renamed; ``LATEST`` is
 replaced last.  :class:`CheckpointManager` saves from a background thread
 and keeps the newest ``keep`` steps; it copies every tensor to the host
@@ -29,6 +37,8 @@ import threading
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import shard_tensor
 
 _BF16 = "bfloat16"
 
@@ -109,10 +119,14 @@ def latest_step(ckpt_dir: str):
     return int(name.split("_")[-1])
 
 
-def restore(ckpt_dir: str, like_tree, step: int | None = None):
+def restore(ckpt_dir: str, like_tree, step: int | None = None,
+            shardings=None):
     """Restore step ``step`` (the latest by default) into the structure of
-    ``like_tree``: each leaf at the like leaf's dtype and device.  Returns
-    (tree, step)."""
+    ``like_tree``, each leaf at the like leaf's dtype: a leaf with a
+    sharding in ``shardings`` (a tree of ``NamedSharding`` by the same
+    paths; absent or None: whole) as the list of its pieces on the
+    sharding's mesh devices, any other whole on the like leaf's device.
+    Returns (tree, step)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -121,12 +135,15 @@ def restore(ckpt_dir: str, like_tree, step: int | None = None):
     with open(os.path.join(step_dir, "MANIFEST.json")) as f:
         manifest = json.load(f)
     by_path = {e["path"]: e for e in manifest["leaves"]}
+    placed = dict(_flatten(shardings)) if shardings is not None else {}
     values = {}
     for path, like in _flatten(like_tree):
         entry = by_path[path]
         t = _from_numpy(np.load(os.path.join(step_dir, entry["file"])),
-                        entry["dtype"])
-        values[path] = t.to(device=like.device, dtype=like.dtype)
+                        entry["dtype"]).to(dtype=like.dtype)
+        shd = placed.get(path)
+        values[path] = (t.to(like.device) if shd is None
+                        else shard_tensor(t, shd.mesh, shd.spec))
     return _unflatten_like(like_tree, values), step
 
 
@@ -169,9 +186,9 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.dir, f"step_{s:09d}"),
                           ignore_errors=True)
 
-    def restore_latest(self, like_tree):
+    def restore_latest(self, like_tree, shardings=None):
         self.wait()
-        return restore(self.dir, like_tree)
+        return restore(self.dir, like_tree, shardings=shardings)
 
     def latest_step(self):
         return latest_step(self.dir)

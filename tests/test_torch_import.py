@@ -40,6 +40,12 @@ def test_every_module_imports_without_jax():
             "sys.modules['repro'] = None\n"
             f"for name in {mods!r}:\n"
             "    importlib.import_module(name)\n"
+            "from repro_torch.models.moe import (moe_block, moe_block_2d,\n"
+            "    moe_block_sharded, _moe_local_2d, takes_sorted_path)\n"
+            "from repro_torch.distributed import (NamedSharding, psum,\n"
+            "    shard_tensor, unshard_tensor)\n"
+            "from repro_torch.training.checkpoint import (CheckpointManager,\n"
+            "    restore)\n"
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
             "print('ok', len(sys.modules))\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
