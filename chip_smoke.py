@@ -144,7 +144,25 @@ Phases, in order (any failed check raises and the script exits non-zero):
    windows, self and cross reads of the slot views), the caches in place,
    finite logits; the first layer's encoder, self-read and cross-read
    outputs against the plain path at limits their controls must break; one
-   window profiled.
+   window profiled;
+14. analysis: (i) ``python -m repro_torch.analysis.check --device cuda
+   --kv-shards 1,2`` as a function call (0 active findings on the audit
+   model at 1 and 2 shards of this card), each seeded dispatch fixture on
+   CUDA tensors firing exactly its rule, the sync counter against an
+   ``.item()`` control; (ii) Pass 1 at full width: the inventory's entries
+   built on SDAR-8B (36 layers, phase 7's weights drawn again from the
+   seed) with every row live — decode at B 8, c 32, ctx 512 and a chunked
+   prefill of 512 after 512 through the paged kernel, the wave at B 8, T
+   512 through the block-diffusion kernel, ``copy_pages``, ``write_pages``
+   — at 1 and 2 shards: rules HLO001-005 (HLO003 with each dispatch's sync
+   count) and HLO006 give no finding, launches = layers x dispatches; (iii)
+   the dry run (``repro_torch.launch.dryrun`` on ``meta``, in a subprocess
+   started after the build) of SDAR-8B decode_32k cut to 2 layers and
+   SmolLM-135M train_4k cut to 2 layers at 16 microbatches, each on a 1 x 1
+   mesh, against the same step on the card: argument bytes vs
+   ``memory_allocated()`` (equal within the allocator's rounding), the
+   predicted peak vs ``max_memory_allocated()``, the trace's roofline time
+   vs the step's wall (readings).
    Each model is freed before the next is drawn.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -273,19 +291,21 @@ KERNEL_SHAPES = [
 ]
 
 
-def bound(B, c, H, KVH, D, ps, dtype, ctx):
-    """The card's least time for this call: the larger of the bytes it must
-    move (q, the live K/V rows and table entries, ctx_lens, the outputs) over
-    HBM bandwidth and its 4·Σctx·c·H·D operations over the peak rate for the
-    input type.  Counts this call's data (live keys only)."""
-    el = 2 if dtype == "bfloat16" else 4
-    live = sum(ctx)
-    nbytes = (B * c * H * D * el + live * KVH * D * 2 * el
-              + sum(-(-x // ps) for x in ctx) * 4 + B * 4
-              + B * c * H * (D + 2) * 4)
-    ops = 4.0 * live * c * H * D
-    t_b, t_o = nbytes / H100_HBM_BPS, ops / PEAK_FLOPS[dtype]
+def roofline(flops: float, nbytes: float, dtype: str):
+    """The card's least time for ``flops`` operations at the peak rate for
+    ``dtype`` and ``nbytes`` over HBM bandwidth: (ms, what bounds it)."""
+    t_b, t_o = nbytes / H100_HBM_BPS, flops / PEAK_FLOPS[dtype]
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def bound(B, c, H, KVH, D, ps, dtype, ctx):
+    """The card's least time for this call, from the kernel module's cost
+    function (``chunked_paged_attn.cost``) on this call's data (live keys
+    only): its bytes over HBM bandwidth, its 4·Σctx·c·H·D operations over
+    the peak rate for the input type."""
+    from repro_torch.kernels.chunked_paged_attn import cost
+    el = 2 if dtype == "bfloat16" else 4
+    return roofline(*cost(B, c, H, KVH, D, ps, el, ctx=ctx), dtype)
 
 
 # The block-diffusion kernel at the wave-prefill shapes.  (e) is the SDAR-8B
@@ -314,25 +334,20 @@ BD_SHAPES = [
 
 
 def bd_visible(T, bs, lengths) -> int:
-    """Σ_b Σ_t of the keys query t of row b sees: min(len_b, (t//bs+1)·bs)."""
-    return sum(min(min(n, T), (t // bs + 1) * bs)
-               for n in lengths for t in range(T))
+    """Σ_b Σ_t of the keys query t of row b sees: min(len_b, (t//bs+1)·bs)
+    (the kernel module's ``visible_keys``)."""
+    from repro_torch.kernels.block_diffusion_attn import visible_keys
+    return visible_keys(T, bs, lengths)
 
 
 def bd_bound(B, T, H, KVH, D, bs, dtype, lengths):
-    """The card's least time for one block-diffusion call: the larger of the
-    bytes it must move over HBM bandwidth — q of the rows that see a key,
-    the live K/V rows (positions < len_b), lengths and the whole output,
-    each once — and its 4·D·H·Σ visible operations over the peak rate for
-    the input type.  Counts this call's data."""
+    """The card's least time for one block-diffusion call, from the kernel
+    module's cost function (``block_diffusion_attn.cost``) on this call's
+    lengths: its bytes over HBM bandwidth, its 4·D·H·Σ visible operations
+    over the peak rate for the input type."""
+    from repro_torch.kernels.block_diffusion_attn import cost
     el = 2 if dtype == "bfloat16" else 4
-    live_rows = sum(1 for n in lengths if n > 0)
-    nbytes = (live_rows * T * H * D * el
-              + sum(min(n, T) for n in lengths) * KVH * D * 2 * el
-              + B * 4 + B * T * H * D * el)
-    ops = 4.0 * D * H * bd_visible(T, bs, lengths)
-    t_b, t_o = nbytes / H100_HBM_BPS, ops / PEAK_FLOPS[dtype]
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+    return roofline(*cost(B, T, H, KVH, D, bs, el, lengths=lengths), dtype)
 
 
 def bd_kernel_phase(seed: int) -> list[dict]:
@@ -391,7 +406,7 @@ def bd_kernel_phase(seed: int) -> list[dict]:
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, enable_gqa=True))
         b_ms, b_by = bd_bound(B, T, H, KVH, D, bs, dtype, lens)
-        gflop = 4.0 * D * H * bd_visible(T, bs, lens) / 1e9
+        gflop = bda.cost(B, T, H, KVH, D, bs, 2, lengths=lens)[0] / 1e9
         row = {"shape": name, "B": B, "T": T, "H": H, "KVH": KVH, "D": D,
                "block_size": bs, "dtype": dtype, "lengths": lens,
                "max_abs_err": err,
@@ -488,7 +503,7 @@ def kernel_phase(seed: int) -> list[dict]:
             *args, **forced)) for v, forced in variants.items()}
         plain_ms = time_ms(lambda: cpa.paged_chunk_ref(*args))
         b_ms, b_by = bound(B, c, H, KVH, D, ps, dtype, ctx)
-        gflop = 4.0 * sum(ctx) * c * H * D / 1e9
+        gflop = cpa.cost(B, c, H, KVH, D, ps, 2, ctx=ctx)[0] / 1e9
         ms = ms_by["picked"]
         row = {"shape": name, "B": B, "c": c, "H": H, "KVH": KVH, "D": D,
                "page_size": ps, "n_slots": n_slots, "dtype": dtype,
@@ -1904,6 +1919,7 @@ def serve_run(model, params, mode: str, reqs, max_len: int,
     7c), every paged read split-KV."""
     import torch
 
+    from repro_torch.analysis import rules
     from repro_torch.core.latency_model import CPU_HOST, AnalyticDeviceModel
     from repro_torch.core.scheduler import ElasticScheduler, FixedScheduler
     from repro_torch.kernels import block_diffusion_attn as bda
@@ -1911,6 +1927,7 @@ def serve_run(model, params, mode: str, reqs, max_len: int,
     from repro_torch.models import moe
     from repro_torch.serving import DATASETS, ModelBackend, ServingEngine
     from repro_torch.serving.backends import _split_kv_collective_bytes
+    from torch.utils._pytree import tree_leaves
 
     cfg = model.cfg
     wave = mode == "wave"
@@ -1930,11 +1947,20 @@ def serve_run(model, params, mode: str, reqs, max_len: int,
     else:
         sched = FixedScheduler(1)
     shapes = {"decode": [], "prefill": []}
+    budget_findings = []
 
     def record(kind, fn):
+        # every dispatch's returned tensors other than the pool's held to
+        # rule HLO003's budget: 8·B·c bytes a decode, 8·B a prefill
         def wrapped(params, cache, tokens, *a, **k):
             shapes[kind].append(tuple(tokens.shape))
-            return fn(params, cache, tokens, *a, **k)
+            out = fn(params, cache, tokens, *a, **k)
+            B, c = tokens.shape
+            budget_findings.extend(rules.check_host_budget(
+                [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)],
+                budget_bytes=8 * B * (c if kind == "decode" else 1),
+                pool=cache, target=f"{kind} {tuple(tokens.shape)}"))
+            return out
         return wrapped
 
     prefill_fn = "prefill_paged" if wave else "prefill_chunk_paged"
@@ -1956,7 +1982,7 @@ def serve_run(model, params, mode: str, reqs, max_len: int,
         release(rid)
 
     be.release = spy
-    ptrs = pool_ptrs(be.kv)
+    ptrs = rules.pool_ptrs(be.kv)
     eng = ServingEngine(be, sched, max_batch=8)
     undo = record_gaps(be, gaps, margins, steps) if mode != "ar" \
         else (lambda: None)
@@ -2041,7 +2067,9 @@ def serve_run(model, params, mode: str, reqs, max_len: int,
          f"{n_dec + n_pre} dispatches"),
         (be.host_transfer_bytes == dec_bytes + pre_bytes,
          "host bytes != 8·Bp·c per decode + 8·Bp per prefill dispatch"),
-        (pool_ptrs(be.kv) == ptrs, "the page pool moved"),
+        (not budget_findings, "; ".join(f"{f.target}: {f.message}"
+                                        for f in budget_findings[:3])),
+        *pool_checks("the page pool", be.kv, ptrs),
         (be.kv.free_pages == be.kv.n_pages, "pages leaked"),
         (be.device_dispatches == S * (n_dec + n_pre),
          f"device_dispatches {be.device_dispatches} != {S} x "
@@ -2218,19 +2246,18 @@ def build_replicas(model, params, n: int, router, **kw):
     return cluster, mem
 
 
-def pool_tensors(kv) -> list:
-    """The pool's tensors: every shard's K and V blocks (an unsharded
-    pool's one K and one V)."""
-    ks, vs, _ = kv.pool_blocks()
-    return ks + vs
-
-
 def pool_bytes(kv) -> int:
+    from repro_torch.analysis.rules import pool_tensors
     return sum(t.numel() * t.element_size() for t in pool_tensors(kv))
 
 
-def pool_ptrs(kv) -> tuple:
-    return tuple(t.data_ptr() for t in pool_tensors(kv))
+def pool_checks(what: str, pool, ptrs) -> list:
+    """Rule HLO001 (``repro_torch.analysis.rules.check_pool_donation``) on a
+    run's pool: every tensor at its ``data_ptr`` of before the run; as
+    (ok, message) checks."""
+    from repro_torch.analysis.rules import check_pool_donation
+    fs = check_pool_donation(pool, ptrs, target=what)
+    return [(not fs, "; ".join(f.message for f in fs))]
 
 
 def spy_outputs(cores) -> dict:
@@ -2269,8 +2296,8 @@ def cluster_checks(what, cfg, params, cores, ptrs, outs, reqs) -> list:
             core.backend.params[n].data_ptr() == t.data_ptr()
             for n, t in params.items()) for core in cores),
          "a replica does not share the weights"),
-        ([pool_ptrs(core.backend.kv) for core in cores] == ptrs,
-         "a page pool moved"),
+        *[c for core, p in zip(cores, ptrs)
+          for c in pool_checks(what, core.backend.kv, p)],
         (all(core.backend.kv.free_pages == core.backend.kv.n_pages
              and not core.backend.kv._spilled and not core.backend.kv._seized
              for core in cores), "a pool did not drain"),
@@ -2290,6 +2317,7 @@ def cluster_run(model, params, name: str, router: str, prefill_mode: str,
     before ``ClusterEngine.run`` and read after it."""
     import torch
 
+    from repro_torch.analysis import rules
     from repro_torch.kernels import block_diffusion_attn as bda
     from repro_torch.kernels import chunked_paged_attn as cpa
     from repro_torch.serving import DATASETS
@@ -2303,7 +2331,7 @@ def cluster_run(model, params, name: str, router: str, prefill_mode: str,
     cores = cluster.replicas
     sizes = [pool_bytes(core.backend.kv) for core in cores]
     rise = mem[2] - mem[1]
-    ptrs = [pool_ptrs(core.backend.kv) for core in cores]
+    ptrs = [rules.pool_ptrs(core.backend.kv) for core in cores]
     outs = spy_outputs(cores)
     torch.cuda.synchronize()
     cpa.LAUNCHES = cpa.MERGE_LAUNCHES = bda.LAUNCHES = 0
@@ -2374,6 +2402,7 @@ def migration_drill(model, params, seed: int) -> dict:
     the bf16 tolerance is a fault)."""
     import torch
 
+    from repro_torch.analysis import rules
     from repro_torch.kernels import block_diffusion_attn as bda
     from repro_torch.kernels import chunked_paged_attn as cpa
     from repro_torch.serving import DATASETS
@@ -2386,7 +2415,7 @@ def migration_drill(model, params, seed: int) -> dict:
         prefill_mode="chunked", host_kv_pages=n_pages)
     cores = cluster.replicas
     src, dst, solo = cores
-    ptrs = [pool_ptrs(core.backend.kv) for core in cores]
+    ptrs = [rules.pool_ptrs(core.backend.kv) for core in cores]
     outs = spy_outputs(cores)
     make = lambda: make_requests(  # noqa: E731
         cfg, seed + 2, 1, (DRILL_PROMPT, DRILL_PROMPT),
@@ -3989,6 +4018,259 @@ def encdec_phase(model, params, seed: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the static analyzer and the dry run
+# ---------------------------------------------------------------------------
+
+# (ii): SDAR-8B's dispatches at full width, every row live
+AUDIT_SHAPE = dict(B=8, c=32, T=512, ctx=512, max_len=1024)
+# (iii): cells one card holds, each on a 1 x 1 mesh: SDAR-8B decode at full
+# width cut to 2 layers (128 x 32,800 tokens of bf16 KV, 34.4 GB), and
+# SmolLM-135M's training step cut to 2 layers, 16 microbatches of 16 x 4096
+# tokens (the dry run predicts a 39.6 GB peak; at 8 it predicts 78.8 GB)
+DRYRUN_CELLS = [("sdar-8b", "decode_32k", {"n_layers": 2}),
+                ("smollm-135m", "train_4k",
+                 {"n_layers": 2, "microbatches": 16})]
+# the caching allocator rounds a block up to 512 B, and leaves the rest of
+# a large-pool segment (blocks above 1 MiB) in the block when under 1 MiB
+ALLOC_ROUND, ALLOC_LARGE = 512, 1 << 20
+
+
+def start_dryrun(workdir: Path):
+    """The dry run of DRYRUN_CELLS on ``meta`` (the CLI, once a cell) in a
+    subprocess started now: it needs no card, and its trace is host work
+    that runs beside the phases before 14."""
+    code = ("import json, sys\n"
+            "from repro_torch.launch import dryrun\n"
+            f"for arch, shape, over in {DRYRUN_CELLS!r}:\n"
+            "    rc = dryrun.main(['--arch', arch, '--shape', shape,\n"
+            "                      '--devices', '1', '--force', '--out',\n"
+            f"                      {str(workdir)!r}, '--cfg-override',\n"
+            "                      json.dumps(over)])\n"
+            "    if rc:\n"
+            "        sys.exit(rc)\n")
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
+                            cwd=str(ROOT), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def analysis_cli_phase() -> dict:
+    """(i) The audit as the CLI runs it — on the audit model, on the card,
+    at 1 and 2 shards of it — then each seeded dispatch fixture on CUDA
+    tensors, which must fire exactly its rule; and the sync counter against
+    a dispatch that does sync (``.item()``), which it must see."""
+    import torch
+
+    from repro_torch.analysis import check, fixtures, hlo, optrace, rules
+
+    t0 = time.perf_counter()
+    rc = check.main(["--device", DEVICE, "--kv-shards", "1,2", "--verbose"])
+    if rc != 0:
+        raise AssertionError(f"phase 14 (i): the analyzer's CLI exited {rc}")
+    fired = {}
+    fn, (cache, x) = fixtures.undonated_pool_step(DEVICE)
+    ptrs = rules.pool_ptrs(cache)
+    out, tr = optrace.trace(fn, cache, x)
+    fired["HLO001"] = rules.check_pool_donation(out, ptrs, tr)
+    fn, args = fixtures.vocab_escaping_step(DEVICE)
+    syncs, (_, tr) = rules.count_syncs(lambda: optrace.trace(fn, *args),
+                                       DEVICE)
+    fired["HLO002"] = rules.check_vocab_escape(
+        tr.outputs, vocab_size=fixtures.FIXTURE_VOCAB)
+    fired["HLO003"] = rules.check_host_budget(
+        tr.outputs, budget_bytes=8 * fixtures.FIXTURE_B * fixtures.FIXTURE_C,
+        syncs=syncs)
+    fn, args, expected = fixtures.missing_collective_step(DEVICE)
+    _, tr = hlo.traced(fn, *args)
+    fired["HLO004"] = rules.check_collectives(tr.collectives,
+                                              expected=expected)
+    fn, makers = fixtures.unbucketed_grid_step(DEVICE)
+    fired["HLO005"] = rules.check_recompile_churn(fn, makers,
+                                                  declared_buckets=3)
+    control, _ = rules.count_syncs(
+        lambda: torch.ones(1, device=DEVICE).sum().item(), DEVICE)
+    res = {"cli_rc": rc, "fixture_syncs": syncs, "sync_control": control,
+           "fired": {k: sorted({f.rule for f in v})
+                     for k, v in fired.items()},
+           "wall_s": time.perf_counter() - t0}
+    log(f"phase 14 (i): CLI rc {rc}; fixtures fired {res['fired']}; "
+        f"syncs counted in the vocab fixture {syncs}, in the .item() "
+        f"control {control}; {res['wall_s']:.3f} s")
+    checks = [(v == [k], f"fixture {k} fired {v}")
+              for k, v in res["fired"].items()]
+    checks.append((control and control > 0, "the sync counter saw no sync "
+                   "in a dispatch that syncs"))
+    checks.append((syncs == 0, f"the vocab fixture synced {syncs} times"))
+    raise_failed("phase 14 (i)", checks)
+    return res
+
+
+def analysis_model_phase(model, params) -> dict:
+    """(ii) Pass 1 at full width: the inventory's entries built on
+    SDAR-8B (phase 7's weights drawn again from the seed) with every row
+    live — decode at B 8, c 32, ctx 512 and a chunked prefill of 512
+    tokens after 512 through the paged kernel, the wave at B 8, T 512
+    through the block-diffusion kernel, ``copy_pages`` and
+    ``write_pages`` — at 1 shard and at 2 shards of this card.  HLO001-005
+    give no finding (HLO003 with the dispatch's sync count), and each
+    kernel's launches equal layers x its dispatches (S x for a sharded
+    read)."""
+    import torch
+
+    from repro_torch.analysis import check, inventory
+    from repro_torch.kernels import block_diffusion_attn as bda
+    from repro_torch.kernels import chunked_paged_attn as cpa
+
+    t0 = time.perf_counter()
+    L = model.cfg.n_layers
+    findings, rows = [], []
+    cpa.LAUNCHES = cpa.MERGE_LAUNCHES = bda.LAUNCHES = 0
+    want_paged = want_bd = 0
+    for S in (1, 2):
+        entries = inventory.build_entries(
+            S, DEVICE, model=model, params=params,
+            cache_dtype=torch.bfloat16, **AUDIT_SHAPE)
+        for e in entries:
+            st = {}
+            fs = check.audit_entry(e, DEVICE, stats=st)
+            findings += fs
+            runs = st["runs"]            # a warm-up, the audited one, churn
+            if e.name in ("decode_step_paged", "prefill_chunk_paged"):
+                want_paged += S * L * runs
+            if e.name == "prefill_paged":
+                want_bd += L * runs
+            census = st["vocab_intermediates"]
+            row = {"target": e.target, "findings": len(fs),
+                   "syncs": st["syncs"], "ops": st["ops"],
+                   "trace_flops": st["flops"], "trace_bytes": st["bytes"],
+                   "kernel_ops": st["kernels"],
+                   "grown_bytes": st["grown_bytes"],
+                   "vocab_intermediates": len(census),
+                   "vocab_shapes": sorted({str(list(s)) for _, s in census})}
+            rows.append(row)
+            log(f"phase 14 (ii): {e.target}: {len(fs)} findings, "
+                f"{st['syncs']} syncs, {st['ops']} ops, "
+                f"{st['flops']:.4e} FLOPs, {st['bytes']:.4e} B, kernels "
+                f"{st['kernels']}, memory grown {st['grown_bytes']} B, "
+                f"{len(census)} vocab-axis intermediates "
+                f"{row['vocab_shapes']}")
+        del entries
+        torch.cuda.empty_cache()
+    findings += inventory.audit_registration()
+    torch.cuda.synchronize()
+    res = {"rows": rows, "findings": [f.to_dict() for f in findings],
+           "kernel_launches": cpa.LAUNCHES,
+           "merge_launches": cpa.MERGE_LAUNCHES,
+           "bd_kernel_launches": bda.LAUNCHES,
+           "want_paged_launches": want_paged, "want_bd_launches": want_bd,
+           "wall_s": time.perf_counter() - t0}
+    log(f"phase 14 (ii): {len(findings)} findings; paged launches "
+        f"{cpa.LAUNCHES} (want {want_paged}), merge {cpa.MERGE_LAUNCHES}, "
+        f"block-diffusion {bda.LAUNCHES} (want {want_bd}); "
+        f"{res['wall_s']:.3f} s")
+    raise_failed("phase 14 (ii)", [
+        (not findings, "; ".join(f"{f.rule} {f.target}: {f.message}"
+                                 for f in findings[:4])),
+        (cpa.LAUNCHES == want_paged,
+         f"{cpa.LAUNCHES} paged launches != {want_paged}"),
+        (bda.LAUNCHES == want_bd,
+         f"{bda.LAUNCHES} block-diffusion launches != {want_bd}")])
+    return res
+
+
+def dryrun_phase(proc, workdir: Path, seed: int) -> list[dict]:
+    """(iii) The dry run's prediction for DRYRUN_CELLS (the subprocess of
+    :func:`start_dryrun`) set against the same step run on the card with
+    real tensors: the argument bytes against ``memory_allocated()`` once
+    the arguments are placed (equal within the allocator's rounding: up to
+    ALLOC_ROUND a leaf, ALLOC_LARGE a leaf above it), the predicted peak
+    (arguments + the trace's peak of live bytes) against
+    ``max_memory_allocated()`` during the step, and the roofline time of
+    the trace's FLOPs and device-memory traffic (``hbm_bytes``) beside the
+    step's wall (readings)."""
+    import torch
+
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import Mesh
+
+    out, _ = proc.communicate(timeout=600)
+    log(out.rstrip())
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 14 (iii): the dry run exited "
+                             f"{proc.returncode}")
+    mesh = Mesh(("data", "model"), (1, 1), (torch.device("meta"),))
+    rows = []
+    for arch, shape, over in DRYRUN_CELLS:
+        rec = json.loads((workdir / "pod_16x16" /
+                          f"{arch}__{shape}.json").read_text())
+        meta = specs.build_cell(arch, shape, mesh, cfg_overrides=over)
+        leaves = [t.numel() * t.element_size()
+                  for t, _ in dryrun._leaves(meta.args, meta.in_shardings)]
+        rounded = sum(-(-n // ALLOC_ROUND) * ALLOC_ROUND for n in leaves)
+        slack = sum(ALLOC_LARGE if n > ALLOC_LARGE else ALLOC_ROUND
+                    for n in leaves)
+        del meta
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        cell = specs.build_cell(arch, shape, mesh, cfg_overrides=over,
+                                device=DEVICE, seed=seed)
+        torch.cuda.synchronize()
+        placed = torch.cuda.memory_allocated() - base
+        walls, peaks = [], []
+        for _ in range(2 if cell.kind != "train" else 1):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = cell.fn(*cell.args)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+            del res
+        tr = rec["trace"]
+        pred_peak = rec["arg_bytes_per_device"] + tr["peak_live_bytes"]
+        roof_ms, roof_by = roofline(tr["flops"], tr["hbm_bytes"],
+                                    "bfloat16")
+        row = {"arch": arch, "shape": shape, "overrides": over,
+               "kind": cell.kind, "leaves": len(leaves),
+               "pred_arg_bytes": rec["arg_bytes_per_device"],
+               "pred_arg_bytes_rounded": rounded, "rounding_slack": slack,
+               "placed_bytes": placed,
+               "pred_peak_bytes": pred_peak, "measured_peak_bytes":
+               peaks[-1], "peak_ratio": peaks[-1] / pred_peak,
+               "trace_flops": tr["flops"], "trace_bytes": tr["bytes"],
+               "trace_hbm_bytes": tr["hbm_bytes"],
+               "trace_ops": tr["ops"], "kernel_ops": tr["kernel_ops"],
+               "trace_s": rec["trace_s"], "model_flops": rec["model_flops"],
+               "roofline_ms": roof_ms, "roofline_by": roof_by,
+               "wall_ms": [w * 1e3 for w in walls],
+               "wall_over_roofline": walls[-1] * 1e3 / roof_ms}
+        rows.append(row)
+        log(f"phase 14 (iii): {arch} {shape} {over}: arguments predicted "
+            f"{row['pred_arg_bytes']} B ({rounded} B at the allocator's "
+            f"{ALLOC_ROUND} B over {len(leaves)} leaves), placed {placed} "
+            f"B; peak predicted {pred_peak} B, measured {peaks[-1]} B "
+            f"(ratio {row['peak_ratio']:.4f}); trace {tr['flops']:.4e} "
+            f"FLOPs, {tr['hbm_bytes']:.4e} B of traffic ({tr['bytes']:.4e} "
+            f"operand + result B, {tr['ops']} ops, "
+            f"{rec['trace_s']} s on meta) -> roofline {roof_ms:.3f} ms "
+            f"({roof_by}); wall {', '.join(f'{w * 1e3:.3f}' for w in walls)}"
+            f" ms ({row['wall_over_roofline']:.2f}x)")
+        raise_failed(f"phase 14 (iii) {arch} {shape}", [
+            (rec["status"] == "ok", "the dry run failed"),
+            (row["pred_arg_bytes"] <= placed
+             <= row["pred_arg_bytes"] + slack,
+             f"placed {placed} B is not the predicted "
+             f"{row['pred_arg_bytes']} B within the allocator's rounding "
+             f"({slack} B)")])
+        del cell
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+
 def make_requests(cfg, seed: int, n: int, prompt: tuple, new: tuple):
     import numpy as np
 
@@ -4031,9 +4313,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.models import build_model
 
     t0 = time.perf_counter()
     libs = build.build(build.all_sources())
@@ -4044,6 +4324,25 @@ def main() -> int:
     for r in ptxas:
         log(f"  ptxas: {r['kernel']}: {r['registers']} registers, "
             f"{r['spill_bytes']} bytes spilled")
+
+    # phase 14's dry run on meta runs beside the phases before it
+    dry_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    dry_proc = start_dryrun(dry_dir)
+    try:
+        return run_phases(args, card, build_s, ptxas, dry_proc, dry_dir)
+    finally:
+        if dry_proc.poll() is None:
+            dry_proc.kill()
+            dry_proc.wait()
+        shutil.rmtree(dry_dir, ignore_errors=True)
+
+
+def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
+    """Phases 3-14, then the result lines."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
 
     log_phase("3: kernels")
     kern_rows = kernel_phase(args.seed)
@@ -4201,6 +4500,19 @@ def main() -> int:
     del model, params
     free(cfg.name)
 
+    log_phase("14: analysis")
+    t14 = time.perf_counter()
+    analysis_res = {"cli": analysis_cli_phase()}
+    cfg = get_config("sdar-8b")
+    model, params = draw(cfg)
+    analysis_res["model"] = analysis_model_phase(model, params)
+    del model, params
+    free("sdar-8b")
+    analysis_res["dryrun"] = dryrun_phase(dry_proc, dry_dir, args.seed)
+    analysis_res["wall_s"] = time.perf_counter() - t14
+    log(f"phase 14: {analysis_res['wall_s']:.3f} s wall")
+    a_model = analysis_res["model"]
+
     log_phase("done")
     cluster_runs = cluster_res["runs"] + [cluster_res["drill"]]
     split_runs = split_res["runs"]
@@ -4212,10 +4524,12 @@ def main() -> int:
         "replaces": "src/repro/kernels/chunked_paged_attn.py:85",
         "launches": sum(r["kernel_launches"]
                         for r in runs + cluster_runs + split_runs)
-        + encdec_res["kernel_launches"] + ep_res["model"]["kernel_launches"],
+        + encdec_res["kernel_launches"] + ep_res["model"]["kernel_launches"]
+        + a_model["kernel_launches"],
         "merge_launches": sum(r["merge_launches"]
                               for r in runs + cluster_runs + split_runs)
-        + encdec_res["merge_launches"] + ep_res["model"]["merge_launches"],
+        + encdec_res["merge_launches"] + ep_res["model"]["merge_launches"]
+        + a_model["merge_launches"],
         "launches_by_site": {"serving runs": sum(r["kernel_launches"]
                                                  for r in runs),
                              "cluster runs": sum(r["kernel_launches"]
@@ -4225,7 +4539,9 @@ def main() -> int:
                              "expert-parallel runs":
                                  ep_res["model"]["kernel_launches"],
                              "encdec decoder reads":
-                                 encdec_res["kernel_launches"]},
+                                 encdec_res["kernel_launches"],
+                             "analysis (phase 14)":
+                                 a_model["kernel_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -4240,7 +4556,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/block_diffusion_attn.py:86",
         "launches": sum(r["bd_kernel_launches"]
                         for r in runs + cluster_runs + split_runs)
-        + encdec_res["bd_kernel_launches"],
+        + encdec_res["bd_kernel_launches"] + a_model["bd_kernel_launches"],
         "launches_by_site": {"serving runs": sum(r["bd_kernel_launches"]
                                                  for r in runs),
                              "cluster runs": sum(r["bd_kernel_launches"]
@@ -4248,7 +4564,9 @@ def main() -> int:
                              "sharded pool runs": sum(
                                  r["bd_kernel_launches"] for r in split_runs),
                              "encdec encoder":
-                                 encdec_res["bd_kernel_launches"]},
+                                 encdec_res["bd_kernel_launches"],
+                             "analysis (phase 14)":
+                                 a_model["bd_kernel_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in bd_rows),
         "ms": bd_rows[0]["ms"], "plain_ms": bd_rows[0]["plain_ms"],
         "bound_ms": bd_rows[0]["bound_ms"],
@@ -4270,7 +4588,7 @@ def main() -> int:
              "ssm": ssm_res, "hybrid": hybrid_res, "serve": runs,
              "wave_vs_chunked": wave_vs_chunked, "train": train_res,
              "launcher": launcher_res, "encdec_train": enc_train_res,
-             "encdec": encdec_res}, indent=1))
+             "encdec": encdec_res, "analysis": analysis_res}, indent=1))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

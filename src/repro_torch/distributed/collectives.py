@@ -26,6 +26,14 @@ on one device each move is a no-op.
 
 A sharded pool is a list of per-shard blocks, shard ``s`` owning global
 pages ``[s·P/S, (s+1)·P/S)`` as its own contiguous tensor on its device.
+
+The collective record: every reduction across two or more shards
+(:func:`_all_reduce`, and the cross-shard form of
+``merge_flash_partials``) adds its per-device operand bytes and one op to
+:data:`RECORD` under its kind — the counterpart of the collectives XLA
+puts in the reference's compiled module.  Rule HLO004
+(:mod:`repro_torch.analysis.rules`) compares what a dispatch recorded
+with the backend's analytic formula.
 """
 
 from __future__ import annotations
@@ -41,11 +49,30 @@ from repro_torch.kernels.ops import (combine_flash_partials,
 from repro_torch.kernels.ref import paged_chunk_ref
 
 
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+RECORD = {k: {"bytes": 0, "count": 0} for k in COLLECTIVES}
+
+
+def record_collective(kind: str, nbytes: int, count: int = 1):
+    """Add one collective's per-device operand bytes (``count`` ops) to
+    :data:`RECORD`."""
+    RECORD[kind]["bytes"] += int(nbytes)
+    RECORD[kind]["count"] += count
+
+
+def record_snapshot() -> dict:
+    """A copy of :data:`RECORD`, to take differences around a call."""
+    return {k: dict(v) for k, v in RECORD.items()}
+
+
 def _all_reduce(xs, op: str):
     """``op`` ("max" or "sum") of the shards' tensors ``xs``, elementwise, on
     the first shard's device in the tensors' own dtype; returns the result
     on each shard's device (every shard holds the same value)."""
     dev = xs[0].device
+    if len(xs) > 1:
+        record_collective("all-reduce", xs[0].numel() * xs[0].element_size())
     out = xs[0]
     for x in xs[1:]:
         x = x.to(dev)

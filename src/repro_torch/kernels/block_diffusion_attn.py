@@ -24,6 +24,11 @@ FMAs on the CUDA cores.  wgmma, TMA and a persistent grid are later work.
 
 ``LAUNCHES`` counts kernel launches (only the CUDA path adds to it), so a
 run can show that its main path went through the kernel.
+
+:func:`cost` is the call's FLOPs and bytes, read by the op trace
+(:mod:`repro_torch.analysis.optrace`, one op a call), the dry run and
+``chip_smoke.py``'s bound.  A ``meta`` tensor takes a shape-only route:
+an empty output of q's shape and dtype, nothing computed.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.analysis import optrace
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import block_diffusion_ref
 
@@ -44,6 +50,31 @@ _ROWS = 64            # rows (positions × grouped heads) per thread block
 _MAX_GRID_Z = 65535
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def visible_keys(T: int, block_size: int, lengths) -> int:
+    """Σ_b Σ_t of the keys query t of row b sees: ``min(len_b, (t // bs +
+    1)·bs)`` (block-causal, keys below the row's length)."""
+    t = np.arange(T, dtype=np.int64)
+    reach = (t // block_size + 1) * block_size
+    return int(sum(np.minimum(min(int(n), T), reach).sum() for n in lengths))
+
+
+def cost(B: int, T: int, H: int, KVH: int, D: int, block_size: int,
+         itemsize: int, lengths=None):
+    """(FLOPs, bytes) of one call: ``4·D·H·Σ visible`` operations (QKᵀ and
+    PV over the keys each query sees, :func:`visible_keys`) and the bytes
+    it must move — q of the rows that see a key, the live K/V rows
+    (positions < len_b), lengths and the whole output, each once.
+    ``lengths``: this call's row lengths; None counts every row at T, what
+    a shape-only count sees (the op trace, the dry run)."""
+    if lengths is None:
+        lengths = [T] * B
+    live_rows = sum(1 for n in lengths if n > 0)
+    nbytes = (live_rows * T * H * D * itemsize
+              + sum(min(n, T) for n in lengths) * KVH * D * 2 * itemsize
+              + B * 4 + B * T * H * D * itemsize)
+    return 4.0 * D * H * visible_keys(T, block_size, lengths), nbytes
 
 
 def _lib():
@@ -134,12 +165,22 @@ def block_diffusion_attention(q, k, v, lengths, *, block_size: int,
     """Block-causal attention over a position-aligned sequence.
 
     CUDA tensors launch the kernel; CPU tensors run the plain version
-    (:func:`repro_torch.kernels.ref.block_diffusion_ref`).  Returns
-    [B,T,H,D] in q's dtype.
+    (:func:`repro_torch.kernels.ref.block_diffusion_ref`); ``meta`` tensors
+    return an empty output of q's shape.  Under an op trace the call is one
+    op with :func:`cost` at full rows.  Returns [B,T,H,D] in q's dtype.
     """
-    if q.is_cuda:
-        return block_diffusion_attention_kernel(q, k, v, lengths,
-                                                block_size=block_size,
-                                                scale=scale)
-    return block_diffusion_ref(q, k, v, lengths, block_size=block_size,
-                               scale=scale)
+    def run():
+        if q.is_meta:
+            return torch.empty_like(q)
+        if q.is_cuda:
+            return block_diffusion_attention_kernel(
+                q, k, v, lengths, block_size=block_size, scale=scale)
+        return block_diffusion_ref(q, k, v, lengths, block_size=block_size,
+                                   scale=scale)
+
+    B, T, H, D = q.shape
+    return optrace.kernel_call(
+        "block_diffusion_attention",
+        lambda: cost(B, T, H, k.shape[2], D, min(int(block_size), T),
+                     q.element_size()),
+        (q, k, v, lengths), run)

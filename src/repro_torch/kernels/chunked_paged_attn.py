@@ -29,6 +29,12 @@ later work.
 ``MERGE_LAUNCHES`` those that also launched the merge (S > 1); only the
 CUDA path adds to them, so a run can show that its main path went through
 the kernels.
+
+:func:`cost` is the call's FLOPs and bytes, read by the op trace
+(:mod:`repro_torch.analysis.optrace`, one op a call), the dry run and
+``chip_smoke.py``'s bound.  A ``meta`` tensor takes a shape-only route:
+empty outputs of the kernel's shapes and dtypes, nothing computed (the
+torch form of a Pallas abstract evaluation).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.analysis import optrace
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (KEYS_PER_TILE, paged_chunk_ref,
                                      paged_chunk_split_ref)
@@ -74,6 +81,31 @@ def _lib():
 def _check(cond: bool, msg: str):
     if not cond:
         raise ValueError(f"paged_chunk_attention kernel: {msg}")
+
+
+def cost(B: int, c: int, H: int, KVH: int, D: int, page_size: int,
+         itemsize: int, ctx=None, n_slots: int | None = None):
+    """(FLOPs, bytes) of one call: ``4·Σctx·c·H·D`` operations (QKᵀ and PV
+    over each row's live keys) and the bytes it must move — q, the live
+    K/V rows and their table entries, ctx_lens, and the fp32 outputs, each
+    once.  ``ctx``: the rows' context lengths (this call's data); None
+    counts every row at the table's capacity ``n_slots·page_size``, what
+    a shape-only count sees (the op trace, the dry run)."""
+    if ctx is None:
+        ctx = [n_slots * page_size] * B
+    live = sum(ctx)
+    nbytes = (B * c * H * D * itemsize + live * KVH * D * 2 * itemsize
+              + sum(-(-x // page_size) for x in ctx) * 4 + B * 4
+              + B * c * H * (D + 2) * 4)
+    return 4.0 * live * c * H * D, nbytes
+
+
+def _meta_outputs(q):
+    """The kernel's outputs for a ``meta`` q, nothing computed."""
+    B, c, H, D = q.shape
+    return (q.new_empty((B, c, H, D), dtype=torch.float32),
+            q.new_empty((B, c, H), dtype=torch.float32),
+            q.new_empty((B, c, H), dtype=torch.float32))
 
 
 def pick_splits(B: int, c: int, H: int, KVH: int, page_size: int,
@@ -185,11 +217,24 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
     """Flash partials of chunk queries vs the paged prefix cache.
 
     CUDA tensors launch the kernel; CPU tensors run the plain version
-    (:func:`repro_torch.kernels.ref.paged_chunk_ref`).  Returns
+    (:func:`repro_torch.kernels.ref.paged_chunk_ref`); ``meta`` tensors
+    return empty outputs of the kernel's shapes.  Under an op trace the
+    call is one op with :func:`cost` at the table's capacity.  Returns
     (acc [B,c,H,D] fp32, m [B,c,H], l [B,c,H]).
     """
-    if q.is_cuda:
-        return paged_chunk_attention_kernel(q, k_pages, v_pages, block_tables,
-                                            ctx_lens, scale=scale)
-    return paged_chunk_ref(q, k_pages, v_pages, block_tables, ctx_lens,
-                           scale=scale)
+    def run():
+        if q.is_meta:
+            return _meta_outputs(q)
+        if q.is_cuda:
+            return paged_chunk_attention_kernel(
+                q, k_pages, v_pages, block_tables, ctx_lens, scale=scale)
+        return paged_chunk_ref(q, k_pages, v_pages, block_tables, ctx_lens,
+                               scale=scale)
+
+    B, c, H, D = q.shape
+    _, ps, KVH, _ = k_pages.shape
+    return optrace.kernel_call(
+        "paged_chunk_attention",
+        lambda: cost(B, c, H, KVH, D, ps, q.element_size(),
+                     n_slots=block_tables.shape[1]),
+        (q, k_pages, v_pages, block_tables, ctx_lens), run)

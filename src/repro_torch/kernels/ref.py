@@ -64,8 +64,15 @@ def merge_flash_partials(parts, device=None):
     of a mesh, one a shard, each on its shard's device; they are brought
     to ``device`` and merged there — the max of m and the sums of the
     corrected acc and l across the shards, which the JAX package writes
-    as ``pmax`` and ``psum`` over a mapped axis."""
+    as ``pmax`` and ``psum`` over a mapped axis.  That form adds the three
+    reductions' per-device operand bytes (acc, m and l) to the collective
+    record (``repro_torch.distributed.collectives.RECORD``) when two or
+    more shards take part."""
     if device is not None:
+        if len(parts) > 1:
+            from repro_torch.distributed.collectives import record_collective
+            record_collective("all-reduce", sum(
+                t.numel() * t.element_size() for t in parts[0]), count=3)
         parts = [tuple(t.to(device) for t in p) for p in parts]
     m_g = parts[0][1]
     for _, m, _ in parts[1:]:

@@ -152,3 +152,12 @@ def dense_init(gen, shape, dtype, device, fan_in: int | None = None):
 
 def embed_init(gen, shape, dtype, device):
     return _normal(gen, shape, device).mul_(0.02).to(dtype)
+
+
+def cache_axes(cache, leaf_axes):
+    """The logical axes of a cache dict: ``leaf_axes(name, tensor)`` for each
+    tensor leaf (``name`` its own key), the same nesting, None for a leaf
+    that is not a tensor."""
+    return {k: cache_axes(v, leaf_axes) if isinstance(v, dict)
+            else leaf_axes(k, v) if isinstance(v, torch.Tensor) else None
+            for k, v in cache.items()}

@@ -38,8 +38,10 @@ import torch
 
 from repro_torch.kernels.ops import (block_diffusion_attention,
                                      paged_chunk_attention)
-from repro_torch.models.common import ArchConfig, dense_init, embed_init
+from repro_torch.models.common import (ArchConfig, cache_axes, dense_init,
+                                       embed_init)
 from repro_torch.models.layers import (_checkpointed, attn_output,
+                                       axes_attention, axes_mlp, axes_norm,
                                        block_causal_mask, causal_mask,
                                        combine_partials, embed_lookup,
                                        flash_partial, init_attention,
@@ -94,6 +96,41 @@ class EncDecLM:
         params["lm_head"] = dense_init(
             generator, (cfg.d_model, cfg.vocab_size), cfg.pdt, device)
         return params
+
+    def logical_axes(self) -> dict:
+        """The logical axes of every parameter, keyed as :meth:`init_params`
+        keys it (the reference's axes, ``layers`` first on a stack)."""
+        cfg = self.cfg
+        axes = {"embed": ("vocab_p", "embed_p")}
+        for stack, subs in (("enc", (("norm1", axes_norm),
+                                     ("attn", axes_attention),
+                                     ("norm2", axes_norm),
+                                     ("mlp", axes_mlp))),
+                            ("dec", (("norm1", axes_norm),
+                                     ("self_attn", axes_attention),
+                                     ("norm_x", axes_norm),
+                                     ("cross_attn", axes_attention),
+                                     ("norm2", axes_norm),
+                                     ("mlp", axes_mlp)))):
+            for sub, fn in subs:
+                for k, v in fn(cfg).items():
+                    axes[f"{stack}/{sub}/{k}"] = ("layers",) + v
+        axes["enc_norm/scale"] = axes_norm(cfg)["scale"]
+        axes["final_norm/scale"] = axes_norm(cfg)["scale"]
+        axes["lm_head"] = ("embed_p", "vocab_p")
+        return axes
+
+    @staticmethod
+    def cache_logical_axes(cache) -> dict:
+        """The logical axes of the slot and cross caches, the reference's by
+        leaf name (``src_prefix``, not a tensor, has none)."""
+        def one(name, leaf):
+            if name in ("k", "v", "cross_k", "cross_v"):
+                return ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+            if name == "len":
+                return ("batch",)
+            return ("batch",) + (None,) * (leaf.dim() - 1)
+        return cache_axes(cache, one)
 
     @staticmethod
     def _sub(params, pre: str, l: int) -> dict:
@@ -288,8 +325,9 @@ class EncDecLM:
         dev = cache["len"].device
         src_mask = src_mask.to(device=dev, dtype=torch.bool)
         src_len = src_mask.sum(-1).to(torch.int32)
-        prefix = bool(torch.equal(src_mask, _arange(B, S, dev)
-                                  < src_len[:, None]))
+        # a meta mask has no values (the dry run): taken as a prefix mask
+        prefix = src_mask.is_meta or bool(torch.equal(
+            src_mask, _arange(B, S, dev) < src_len[:, None]))
         if impl == "kernel" and not prefix:
             raise ValueError("src_mask is not a prefix mask (True exactly "
                              "below each row's length): the kernel route "

@@ -41,6 +41,10 @@ def init_norm(gen, cfg: ArchConfig, device, n: int | None = None):
     return {"scale": torch.ones(shape, dtype=cfg.pdt, device=device)}
 
 
+def axes_norm(cfg: ArchConfig):
+    return {"scale": ("embed",)}
+
+
 # ---------------------------------------------------------------------------
 # Token embedding
 # ---------------------------------------------------------------------------
@@ -83,11 +87,24 @@ def embed_lookup(table, tokens):
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
 
+_INV_FREQ: dict = {}
+
+
+def _inv_freq(dim: int, theta: float, device) -> torch.Tensor:
+    """The inverse frequencies ``[dim//2]``: the JAX package's float32 numpy
+    vector, so the angles match bitwise, copied to ``device`` once (a
+    host→device copy inside a dispatch would synchronise with the host)."""
+    key = (dim, float(theta), torch.device(device))
+    if key not in _INV_FREQ:
+        inv = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
+        _INV_FREQ[key] = torch.from_numpy(np.asarray(inv, np.float32)).to(
+            device)
+    return _INV_FREQ[key]
+
+
 def _rope_angles(positions, dim: int, theta: float):
-    """positions [..., T] → cos/sin [..., T, dim//2] (float32); ``inv`` is
-    the JAX package's float32 numpy vector, so the angles match bitwise."""
-    inv = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
-    inv = torch.from_numpy(np.asarray(inv, np.float32)).to(positions.device)
+    """positions [..., T] → cos/sin [..., T, dim//2] (float32)."""
+    inv = _inv_freq(dim, theta, positions.device)
     ang = positions[..., None].float() * inv
     return torch.cos(ang), torch.sin(ang)
 
@@ -111,8 +128,7 @@ def apply_mrope(x, positions3, theta: float, sections):
     frequency table in turn."""
     d = x.shape[-1]
     assert sum(sections) == d // 2, (sections, d)
-    inv = 1.0 / (theta ** (np.arange(0, d, 2, dtype=np.float32) / d))
-    inv = torch.from_numpy(np.asarray(inv, np.float32)).to(x.device)
+    inv = _inv_freq(d, theta, x.device)
     angs, lo = [], 0
     for comp, sec in enumerate(sections):
         pos = positions3[:, comp, :]                        # [B, T]
@@ -167,6 +183,11 @@ def init_attention(gen, cfg: ArchConfig, device, n: int):
         "wv": dense_init(gen, (n, d, kvh * hd), pd, device, fan_in=d),
         "wo": dense_init(gen, (n, h * hd, d), pd, device, fan_in=h * hd),
     }
+
+
+def axes_attention(cfg: ArchConfig):
+    return {"wq": ("embed_p", "heads_p"), "wk": ("embed_p", "heads_p"),
+            "wv": ("embed_p", "heads_p"), "wo": ("heads_p", "embed_p")}
 
 
 def qkv_project(p, cfg: ArchConfig, x, positions):
@@ -439,6 +460,13 @@ def init_mlp(gen, cfg: ArchConfig, device, n: int):
     }
     if cfg.gated_mlp:
         out["w_gate"] = dense_init(gen, (n, d, f), pd, device, fan_in=d)
+    return out
+
+
+def axes_mlp(cfg: ArchConfig):
+    out = {"w_up": ("embed_p", "mlp_p"), "w_down": ("mlp_p", "embed_p")}
+    if cfg.gated_mlp:
+        out["w_gate"] = ("embed_p", "mlp_p")
     return out
 
 

@@ -47,6 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.analysis import optrace
 from repro_torch.distributed.collectives import psum
 from repro_torch.distributed.sharding import (current_mesh, current_rules,
                                               shard_tensor, unshard_tensor)
@@ -139,6 +140,20 @@ def grouped_matmul_loop(rows, w, group_sizes):
     return out
 
 
+def _grouped_meta(rows, w):
+    """The grouped product's shape-only route for ``meta`` rows: an empty
+    ``[M, N]`` output, recorded under an op trace as one ``_grouped_mm``
+    with every row counted (``2·M·K·N`` FLOPs; the group sizes are
+    values a meta tensor does not have)."""
+    M, K = rows.shape
+    N = w.shape[-1]
+    return optrace.kernel_call(
+        "_grouped_mm",
+        lambda: (2.0 * M * K * N, (M * K + w.numel() + M * N)
+                 * rows.element_size()),
+        (rows, w), lambda: rows.new_empty((M, N)))
+
+
 def grouped_matmul(rows, w, group_sizes):
     """``lax.ragged_dot(rows, w, group_sizes)``.  A CUDA tensor runs one
     ``torch._grouped_mm`` with int32 end offsets computed on the device (no
@@ -147,6 +162,8 @@ def grouped_matmul(rows, w, group_sizes):
     own backward gives ``dW[e] = X_eᵀ·dY_e`` and ``dX`` as the grouped
     product of ``dY`` and ``Wᵀ``."""
     global GROUPED_CALLS
+    if rows.is_meta:
+        return _grouped_meta(rows, w)
     if not rows.is_cuda:
         return grouped_matmul_loop(rows, w, group_sizes)
     if rows.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:

@@ -67,6 +67,14 @@ def init_mamba(gen, cfg: ArchConfig, device, n: int):
     }
 
 
+def axes_mamba(cfg: ArchConfig):
+    return {"in_proj": ("embed_p", "mlp_p"), "conv_w": (None, "mlp_p"),
+            "conv_b": ("mlp_p",), "x_proj": ("mlp_p", None),
+            "dt_proj": (None, "mlp_p"), "dt_bias": ("mlp_p",),
+            "a_log": ("mlp_p", "state"), "d_skip": ("mlp_p",),
+            "out_proj": ("mlp_p", "embed_p")}
+
+
 def mamba_init_state(cfg: ArchConfig, batch: int, dtype=torch.float32, *,
                      device):
     di, _ = mamba_dims(cfg)
@@ -154,6 +162,15 @@ def init_rwkv_timemix(gen, cfg: ArchConfig, device, n: int):
     }
 
 
+def axes_rwkv_timemix(cfg: ArchConfig):
+    return {"mu": (None, "embed"), "wr": ("embed_p", "heads_p"),
+            "wk": ("embed_p", "heads_p"), "wv": ("embed_p", "heads_p"),
+            "wg": ("embed_p", "heads_p"), "w0": ("heads_p",),
+            "w_lora_a": ("embed_p", None), "w_lora_b": (None, "heads_p"),
+            "bonus_u": ("heads", "head_dim"), "ln_scale": ("heads_p",),
+            "wo": ("heads_p", "embed_p")}
+
+
 def init_rwkv_chanmix(gen, cfg: ArchConfig, device, n: int):
     d, f = cfg.d_model, cfg.d_ff
     pd = cfg.pdt
@@ -163,6 +180,11 @@ def init_rwkv_chanmix(gen, cfg: ArchConfig, device, n: int):
         "wv": dense_init(gen, (n, f, d), pd, device, fan_in=f),
         "wr": dense_init(gen, (n, d, d), pd, device, fan_in=d),
     }
+
+
+def axes_rwkv_chanmix(cfg: ArchConfig):
+    return {"mu": (None, "embed"), "wk": ("embed_p", "mlp_p"),
+            "wv": ("mlp_p", "embed_p"), "wr": ("embed_p", "embed_p")}
 
 
 def rwkv_init_state(cfg: ArchConfig, batch: int, dtype=torch.float32, *,

@@ -69,15 +69,17 @@ from repro_torch.kernels.ops import (block_diffusion_attention,
                                      softmax_confidence_device)
 from repro_torch.kernels.ref import block_diffusion_ref, paged_chunk_ref
 from repro_torch.models import ssm
-from repro_torch.models.common import ArchConfig, dense_init, embed_init
+from repro_torch.models.common import (ArchConfig, cache_axes, dense_init,
+                                       embed_init)
 from repro_torch.models.layers import (_checkpointed, attn_output,
+                                       axes_attention, axes_mlp, axes_norm,
                                        block_causal_mask, causal_mask,
                                        combine_partials, embed_lookup,
                                        flash_partial, flash_partial_aligned,
                                        init_attention, init_mlp, init_norm,
                                        mlp_block, qkv_project, rms_norm,
                                        sdpa_partial)
-from repro_torch.models.moe import init_moe, moe_block
+from repro_torch.models.moe import axes_moe, init_moe, moe_block
 
 
 def _page_dest(block_tables, positions, keep, page_size: int, n_pages: int):
@@ -98,14 +100,26 @@ def _page_dest(block_tables, positions, keep, page_size: int, n_pages: int):
 
 def _scatter_pages(pages, new, dest):
     """pages [L,P,ps,KVH,hd] ← new [L,B,T,KVH,hd] at flat dest [B,T], in
-    place.  Sentinel destinations (``>= P·ps``) are filtered out first — the
-    JAX scatter's ``mode="drop"`` — and the rest are written into a flat
-    view of the pool.  Distinct live destinations never collide."""
+    place.  Sentinel destinations (``>= P·ps``) are dropped — the JAX
+    scatter's ``mode="drop"`` — with no read back to the host (no host
+    sync, no shape that depends on values): a sentinel entry rewrites the
+    first live entry's destination with that entry's own value (with no
+    live entry, slot 0 with the value it holds), so repeated destinations
+    receive equal values.  Distinct live destinations never collide."""
     L, P, ps, KVH, hd = pages.shape
-    flat = pages.view(L, P * ps, KVH, hd)
+    n = P * ps
+    flat = pages.view(L, n, KVH, hd)
     d = dest.reshape(-1)
-    live = torch.nonzero(d < P * ps).squeeze(1)
-    flat[:, d[live]] = new.to(pages.dtype).reshape(L, -1, KVH, hd)[:, live]
+    if d.numel() == 0:
+        return pages
+    vals = new.to(pages.dtype).reshape(L, -1, KVH, hd)
+    live = d < n
+    first = torch.argmax(live.to(torch.int32)).reshape(1)
+    any_live = live.any()
+    d = torch.where(live, d, torch.where(any_live, d.index_select(0, first),
+                                         0))
+    fill = torch.where(any_live, vals.index_select(1, first), flat[:, :1])
+    flat[:, d] = torch.where(live[None, :, None, None], vals, fill)
     return pages
 
 
@@ -156,12 +170,12 @@ def write_pages(cache, dst, k_new, v_new):
 def _scatter_slots(cache_kv, new, idx):
     """Slot cache [L,B,S,KVH,hd] ← new [L,B,T,KVH,hd] at positions idx [B,T],
     in place; positions ``>= S`` are dropped (the reference's one-hot
-    scatter writes nothing there)."""
-    L, B, S = cache_kv.shape[:3]
-    T = idx.shape[1]
-    keep = idx < S
-    rows = torch.arange(B, device=idx.device)[:, None].expand(B, T)
-    cache_kv[:, rows[keep], idx[keep]] = new.to(cache_kv.dtype)[:, keep]
+    scatter writes nothing there).  The cache read as B pages of S tokens:
+    :func:`_scatter_pages` on row ``b``'s page, so no host sync."""
+    B, S = cache_kv.shape[1:3]
+    rows = torch.arange(B, device=idx.device)[:, None]
+    _scatter_pages(cache_kv, new, torch.where(idx < S, rows * S + idx,
+                                              B * S))
     return cache_kv
 
 
@@ -179,6 +193,10 @@ class TransformerLM:
                    "rwkv_tm": ssm.init_rwkv_timemix}
     _FFN_INIT = {"mlp": init_mlp, "moe": init_moe,
                  "rwkv_cm": ssm.init_rwkv_chanmix}
+    _MIXER_AXES = {"attn": axes_attention, "mamba": ssm.axes_mamba,
+                   "rwkv_tm": ssm.axes_rwkv_timemix}
+    _FFN_AXES = {"mlp": axes_mlp, "moe": axes_moe,
+                 "rwkv_cm": ssm.axes_rwkv_chanmix}
 
     def __init__(self, cfg: ArchConfig):
         if cfg.family not in self.FAMILIES:
@@ -242,6 +260,44 @@ class TransformerLM:
             params["lm_head"] = dense_init(
                 generator, (cfg.d_model, cfg.vocab_size), cfg.pdt, device)
         return params
+
+    def logical_axes(self) -> dict:
+        """The logical axes of every parameter, keyed as :meth:`init_params`
+        keys it (the reference's axes, ``layers`` first on a stack)."""
+        cfg = self.cfg
+        axes = {"embed": ("vocab_p", "embed_p")}
+        for j, (mixer, ffn) in enumerate(self._positions()):
+            for sub, fn in (("norm1", axes_norm),
+                            ("mixer", self._MIXER_AXES[mixer]),
+                            ("norm2", axes_norm),
+                            ("ffn", self._FFN_AXES[ffn])):
+                for k, v in fn(cfg).items():
+                    axes[f"blocks/pos{j}/{sub}/{k}"] = ("layers",) + v
+        axes["final_norm/scale"] = axes_norm(cfg)["scale"]
+        if not cfg.tie_embeddings:
+            axes["lm_head"] = ("embed_p", "vocab_p")
+        return axes
+
+    @staticmethod
+    def cache_logical_axes(cache) -> dict:
+        """The logical axes of a slot or page-pool cache (``kv_seq`` and
+        ``kv_pages`` are the split-KV axes), the reference's by leaf
+        name."""
+        def one(name, leaf):
+            if name in ("k", "v"):
+                return ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+            if name in ("k_pages", "v_pages"):
+                return ("layers", "kv_pages", None, "kv_heads", "head_dim")
+            if name == "len":
+                return ("batch",)
+            if name == "wkv":
+                return ("layers", "batch", "heads", None, None)
+            if name == "conv":
+                return ("layers", "batch", None, "mlp")
+            if name == "ssm":
+                return ("layers", "batch", "mlp", None)
+            return ("layers", "batch") + (None,) * (leaf.dim() - 2)
+        return cache_axes(cache, one)
 
     @staticmethod
     def _sub(params, j: int, sub: str, l: int) -> dict:

@@ -31,6 +31,7 @@ import repro_torch.common.faults as tfaults
 import repro_torch.core as tcore
 import repro_torch.core.latency_model as tlm
 import repro_torch.serving as tserving
+from repro_torch.analysis import rules
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import serve_cluster as tserve_cluster
 from repro_torch.launch import trace_view as ttrace_view
@@ -377,12 +378,12 @@ def test_migrated_trajectory_equals_uninterrupted(weights):
 
     outs = {}
     dst = _migration_core("torch", weights, outs)
-    ptr = dst.backend.kv.k_pages.data_ptr()
+    ptr = rules.pool_ptrs(dst.backend.kv)
     assert dst.backend.migrate_in(moved, ticket)
     dst.note_failover(moved.rid)
     _drain(dst, moved)
     assert outs[0] == base["torch"] == base["jax"]
-    assert dst.backend.kv.k_pages.data_ptr() == ptr
+    assert rules.check_pool_donation(dst.backend.kv, ptr) == []
     assert dst.backend.kv.free_pages == dst.backend.kv.n_pages
 
 

@@ -38,6 +38,7 @@ import repro_torch.distributed.collectives as tcoll
 import repro_torch.distributed.sharding as tsh
 import repro_torch.launch.mesh as tmesh
 import repro_torch.serving as tserving
+from repro_torch.analysis import rules
 from repro_torch.kernels.ref import paged_chunk_ref
 from repro_torch.models import ArchConfig, build_model, params_from_jax
 from repro_torch.serving.kv_pool import PagedKVAllocator
@@ -343,11 +344,11 @@ def test_scatter_pages_sharded_matches_reference(S):
     dest[0, :3] = P * ps                          # the sentinel
     ks = _ks(S)
     blocks = tcoll.shard_pages(_t(pages), ks)
-    ptrs = [b.data_ptr() for b in blocks]
+    ptrs = rules.pool_ptrs(blocks)
     tcoll.scatter_pages_sharded(blocks, _t(new), _t(dest), ks)
     want = j_scatter_pages(jnp.asarray(pages), jnp.asarray(new),
                            jnp.asarray(dest))
-    assert [b.data_ptr() for b in blocks] == ptrs
+    assert rules.check_pool_donation(blocks, ptrs) == []
     assert np.array_equal(tcoll.unshard_pages(blocks).numpy(),
                           np.asarray(want))
 
@@ -476,7 +477,7 @@ def test_sharded_storage_routes_every_page_operation():
     blocks = sides["sharded"].k_pages
     assert isinstance(blocks, list) and len(blocks) == S
     assert blocks[0].shape == (L, 8, ps, KVH, hd) and blocks[0].is_contiguous()
-    ptrs = [b.data_ptr() for b in blocks + sides["sharded"].v_pages]
+    ptrs = rules.pool_ptrs(sides["sharded"])
     g = torch.Generator().manual_seed(0)
     pool = torch.randn((L, 16, ps, KVH, hd), generator=g)
     for b, x in zip(blocks, torch.chunk(pool, S, dim=1)):
@@ -507,7 +508,7 @@ def test_sharded_storage_routes_every_page_operation():
         assert torch.equal(tcoll.unshard_pages(getattr(kvs, name)),
                            getattr(sides["flat"], name))
     assert torch.equal(kvs.host.k_host, sides["flat"].host.k_host)
-    assert [b.data_ptr() for b in kvs.k_pages + kvs.v_pages] == ptrs
+    assert rules.check_pool_donation(kvs, ptrs) == []
     assert kvs.page_bytes == sides["flat"].page_bytes
 
 
@@ -582,7 +583,7 @@ def test_sharded_backend_commits_reference_tokens(weights, mode, obs,
                                    kv_mesh=_mesh(S), **kw)
         blocks = be.kv.k_pages + be.kv.v_pages
         assert len(blocks) == 2 * S
-        ptrs = [b.data_ptr() for b in blocks]
+        ptrs = rules.pool_ptrs(be.kv)
         shapes = []
         _recorded(tm, shapes)
         try:
@@ -600,7 +601,7 @@ def test_sharded_backend_commits_reference_tokens(weights, mode, obs,
                                        tm.cfg.n_heads, tm.cfg.hd, B, T)
             for kind, B, T in shapes if kind != "wave")
         assert be.collective_bytes > 0
-        assert [b.data_ptr() for b in blocks] == ptrs
+        assert rules.check_pool_donation(be.kv, ptrs) == []
         for r in list(got):
             be.release(r)
         assert be.kv.free_pages == be.kv.n_pages

@@ -1,6 +1,6 @@
 """``repro_torch`` stands alone: every module imports with jax blocked, and
-no file of the port (nor ``chip_smoke.py``) imports jax or the JAX
-package."""
+no file of the port (nor ``chip_smoke.py`` or ``chip_ab.py``) imports jax
+or the JAX package."""
 
 import ast
 import os
@@ -13,7 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "chip_ab.py"]
 
 
 def _modules():
@@ -33,7 +34,11 @@ def test_every_module_imports_without_jax():
                  "repro_torch.launch.serve_cluster",
                  "repro_torch.launch.trace_view",
                  "repro_torch.distributed.collectives",
-                 "repro_torch.launch.mesh"):
+                 "repro_torch.launch.mesh", "repro_torch.analysis",
+                 "repro_torch.analysis.check", "repro_torch.analysis.rules",
+                 "repro_torch.analysis.optrace",
+                 "repro_torch.analysis.inventory",
+                 "repro_torch.launch.specs", "repro_torch.launch.dryrun"):
         assert name in mods
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"

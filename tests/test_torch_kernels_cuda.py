@@ -431,3 +431,85 @@ def test_split_kv_partial_through_the_kernel(cuda, S):
     acc, m, l = got
     assert torch.all(acc[0] == 0) and torch.all(l[0] == 0)
     assert torch.all(m[0] == -1e30)
+
+
+# The bytes and operations chip_smoke.py's phase 3 counted for its bound
+# from PR 13 to PR 19, written out here as the yardstick of the kernel
+# modules' cost functions, at its shapes (a) and (e).
+def _phase3_paged(B, c, H, KVH, D, ps, el, ctx):
+    live = sum(ctx)
+    nbytes = (B * c * H * D * el + live * KVH * D * 2 * el
+              + sum(-(-x // ps) for x in ctx) * 4 + B * 4
+              + B * c * H * (D + 2) * 4)
+    return 4.0 * live * c * H * D, nbytes
+
+
+def _phase3_bd(B, T, H, KVH, D, bs, el, lengths):
+    live_rows = sum(1 for n in lengths if n > 0)
+    nbytes = (live_rows * T * H * D * el
+              + sum(min(n, T) for n in lengths) * KVH * D * 2 * el
+              + B * 4 + B * T * H * D * el)
+    visible = sum(min(min(n, T), (t // bs + 1) * bs)
+                  for n in lengths for t in range(T))
+    return 4.0 * D * H * visible, nbytes
+
+
+def test_cost_functions_match_phase3_bounds(cuda):
+    """The paged kernel at (a) (SDAR-8B decode, B 8, c 32, ragged ctx) and
+    the block-diffusion kernel at (e) (the SDAR-8B wave, B 8, T 512, block
+    32): each module's ``cost`` on this call's data equals the FLOPs and
+    bytes phase 3 used for its bound, and a meta call of the wrapper gives
+    the kernel's output shapes with the full-capacity cost in a trace."""
+    from repro_torch.analysis import optrace
+    a = (8, 32, 32, 8, 128, 16, 2, RAGGED_CTX)
+    assert cpa.cost(*a[:7], ctx=a[7]) == _phase3_paged(*a)
+    wave = [512, 0, 130, 257, 384, 449, 200, 511]
+    e = (8, 512, 32, 8, 128, 32, 2, wave)
+    assert bda.cost(*e[:7], lengths=e[7]) == _phase3_bd(*e)
+    q = torch.empty((8, 32, 32, 128), dtype=torch.bfloat16, device="meta")
+    pages = torch.empty((1040, 16, 8, 128), dtype=torch.bfloat16,
+                        device="meta")
+    tab = torch.empty((8, 130), dtype=torch.int32, device="meta")
+    lens = torch.empty((8,), dtype=torch.int32, device="meta")
+    before = cpa.LAUNCHES
+    (acc, m, l), tr = optrace.trace(cpa.paged_chunk_attention, q, pages,
+                                    pages, tab, lens)
+    assert cpa.LAUNCHES == before
+    assert (acc.shape, m.shape, acc.dtype) == ((8, 32, 32, 128),
+                                               (8, 32, 32), torch.float32)
+    assert tr.ops[0].flops == cpa.cost(8, 32, 32, 8, 128, 16, 2,
+                                       n_slots=130)[0]
+
+
+def test_decode_dispatch_makes_no_host_sync(cuda):
+    """One paged decode dispatch of a small bf16 model through the kernel,
+    under ``torch.cuda.set_sync_debug_mode("error")``: no synchronising
+    operation (rule HLO003's sync half), the pool in place (HLO001), the
+    kernel launched once a layer."""
+    from repro_torch.analysis import inventory, rules
+    from repro_torch.analysis.check import audit_entry
+    from repro_torch.models import ArchConfig, build_model
+
+    cfg = ArchConfig(**{**inventory.AUDIT_ARCH, "d_model": 256,
+                        "n_heads": 2, "n_kv_heads": 1, "param_dtype":
+                        "bfloat16", "compute_dtype": "bfloat16"})
+    model = build_model(cfg)
+    params = model.init_params(device=cuda)
+    e = inventory.build_entries(1, cuda, model=model, params=params, B=4,
+                                c=8, T=16, ctx=32,
+                                cache_dtype=torch.bfloat16)[0]
+    args, kwargs = e.make_args(), e.make_kwargs()
+    ptrs = rules.pool_ptrs(args[1])
+    e.fn(*args, **kwargs)                       # warm: first-use set-up
+    torch.cuda.synchronize()
+    before = cpa.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        e.fn(*args, **kwargs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert cpa.LAUNCHES == before + cfg.n_layers
+    assert rules.check_pool_donation(args[1], ptrs) == []
+    st = {}
+    assert audit_entry(e, cuda, stats=st) == [] and st["syncs"] == 0

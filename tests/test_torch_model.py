@@ -24,6 +24,7 @@ from repro.configs import get_smoke_config as jax_smoke
 from repro.models import build_model as jax_build
 from repro.models.common import ArchConfig as JaxArchConfig
 from repro.models.layers import apply_mrope as jax_apply_mrope
+from repro_torch.analysis import rules
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import (ArchConfig, EncDecLM, TransformerLM,
                                 build_model, params_from_jax)
@@ -99,7 +100,7 @@ def test_paged_dispatches_match_jax(which):
 
     jcache = jm.init_paged_cache(P, ps, dtype=jnp.float32)
     tcache = tm.init_paged_cache(P, ps, dtype=torch.float32, device="cpu")
-    ptr = tcache["k_pages"].data_ptr(), tcache["v_pages"].data_ptr()
+    ptr = rules.pool_ptrs(tcache)
     jpre = jax.jit(functools.partial(jm.prefill_chunk_paged, impl="kernel",
                                      interpret=True))
     jdec = jax.jit(functools.partial(jm.decode_step_paged, impl="kernel",
@@ -148,8 +149,7 @@ def test_paged_dispatches_match_jax(which):
         np.testing.assert_array_equal(tt.numpy(), np.asarray(tj))
         _pages_close(tcache, jcache)
         start = start + np.asarray(n_adv)
-    assert (tcache["k_pages"].data_ptr(),
-            tcache["v_pages"].data_ptr()) == ptr
+    assert rules.check_pool_donation(tcache, ptr) == []
 
 
 @pytest.mark.parametrize("head_mode", ["sample", "logits"])
@@ -178,7 +178,7 @@ def test_prefill_paged_matches_jax(which, head_mode):
 
     jcache = jm.init_paged_cache(P, ps, dtype=jnp.float32)
     tcache = tm.init_paged_cache(P, ps, dtype=torch.float32, device="cpu")
-    ptr = tcache["k_pages"].data_ptr(), tcache["v_pages"].data_ptr()
+    ptr = rules.pool_ptrs(tcache)
     jpre = jax.jit(functools.partial(jm.prefill_paged, head_mode=head_mode))
     jout, jcache = jpre(jparams, jcache, jnp.asarray(toks),
                         jnp.asarray(lens), jnp.asarray(tables))
@@ -201,8 +201,7 @@ def test_prefill_paged_matches_jax(which, head_mode):
     # written: exactly the live positions' slots (pool was zero)
     assert int((tcache["k_pages"][0].abs().sum((-1, -2)) > 0).sum()) == \
         int(lens.sum())
-    assert (tcache["k_pages"].data_ptr(),
-            tcache["v_pages"].data_ptr()) == ptr
+    assert rules.check_pool_donation(tcache, ptr) == []
 
 
 def test_param_layout_and_count_match_jax():

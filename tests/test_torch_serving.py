@@ -26,6 +26,7 @@ from repro.models import build_model as jax_build
 from repro.models.common import ArchConfig as JaxArchConfig
 import repro_torch.core as tcore
 import repro_torch.serving as tserving
+from repro_torch.analysis import rules
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.latency_model import CPU_HOST as T_CPU_HOST
 from repro_torch.models import ArchConfig, build_model, params_from_jax
@@ -343,7 +344,7 @@ def test_prefix_cache_cow_and_host_tier_match_reference(weights, mode):
             be = serving.ModelBackend(jm, jparams, attn_impl="ref", **kw)
         else:
             be = serving.ModelBackend(tm, tparams, device="cpu", **kw)
-            ptr = be.kv.k_pages.data_ptr(), be.kv.v_pages.data_ptr()
+            ptr = rules.pool_ptrs(be.kv)
         reqs = _shared_requests(serving, 4, prompt=prompt)
         outs.append(_drive_reuse(be, reqs, chunk=8 if mode == "elastic"
                                  else 1))
@@ -354,7 +355,7 @@ def test_prefix_cache_cow_and_host_tier_match_reference(weights, mode):
     assert stats[1] == stats[0]
     hits, cow, swap_in, _ = stats[1]
     assert hits > 0 and swap_in > 0 and (cow > 0 or mode == "elastic")
-    assert (be.kv.k_pages.data_ptr(), be.kv.v_pages.data_ptr()) == ptr
+    assert rules.check_pool_donation(be.kv, ptr) == []
 
 
 # ---------------------------------------------------------------------------
