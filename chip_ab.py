@@ -9,11 +9,15 @@ its path, running the same driver: build the kernels, draw SDAR-8B at full
 width and depth from the seed, and serve phase 7's 8 requests through
 ``ModelBackend`` and ``ServingEngine`` — elastic scheduling (as
 ``launch/serve.py`` builds it) with chunked prefill, then with wave
-prefill — timing ``engine.run`` to the card's last kernel.  The turns go
-parent, this checkout, this checkout, parent, twice, so both sides see
-the card and its host alike; compare within one call only.
-Prints one line a turn and, last, a JSON object of every turn's wall,
-committed tok/s and a hash of the committed tokens; needs one card.
+prefill — timing ``engine.run`` to the card's last kernel.  Each mode
+serves the requests twice on one backend: the first run is cold (a
+backend that captures its dispatches captures them there), the second
+warm; the prefix cache is off, so both runs do the same work.  The
+turns go parent, this checkout, this checkout, parent, twice, so both
+sides see the card and its host alike; compare within one call only.
+Prints one line a turn and, last, a JSON object of every turn's cold and
+warm wall, committed tok/s and a hash of the committed tokens; needs one
+card.
 """
 
 from __future__ import annotations
@@ -43,8 +47,7 @@ cfg = get_config("sdar-8b")
 model = build_model(cfg)
 params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
                            device="cuda")
-out = {}
-for mode in ("chunked", "wave"):
+def requests():
     rng = np.random.default_rng(0)
     reqs = []
     for i in range(8):
@@ -53,31 +56,40 @@ for mode in ("chunked", "wave"):
                             max_new_tokens=int(rng.integers(64, 129)),
                             prompt_tokens=rng.integers(
                                 4, cfg.vocab_size - 8, p).tolist()))
+    return reqs
+out = {}
+for mode in ("chunked", "wave"):
     be = ModelBackend(model, params, n_slots=8, max_len=1024,
                       cache_dtype=torch.bfloat16, device="cuda",
-                      prefill_mode=mode)
-    sched = ElasticScheduler.from_analytic(
-        AnalyticDeviceModel(cfg, CPU_HOST),
-        prior_tokens_per_step=DATASETS["sharegpt"].tokens_per_step_bd32,
-        batches=(1, 2, 4, 8), ctx=128.0)
+                      prefill_mode=mode, prefix_cache=False)
     toks, release = {}, be.release
     def spy(rid):
         toks[rid] = list(be.state(rid).output_tokens)
         release(rid)
     be.release = spy
-    eng = ServingEngine(be, sched, max_batch=8)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    n = sum(len(v) for v in toks.values())
-    out[mode] = {"wall_s": wall, "tok_per_s": n / wall,
-                 "tokens_committed": n,
-                 "decode_dispatches": be.decode_dispatches,
-                 "prefill_dispatches": be.prefill_dispatches,
-                 "tokens_sha1": hashlib.sha1(json.dumps(
-                     [toks[r] for r in sorted(toks)]).encode()).hexdigest()}
+    out[mode] = {}
+    for run in ("cold", "warm"):
+        sched = ElasticScheduler.from_analytic(
+            AnalyticDeviceModel(cfg, CPU_HOST),
+            prior_tokens_per_step=DATASETS["sharegpt"].tokens_per_step_bd32,
+            batches=(1, 2, 4, 8), ctx=128.0)
+        eng = ServingEngine(be, sched, max_batch=8)
+        toks.clear()
+        n_dec, n_pre = be.decode_dispatches, be.prefill_dispatches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(requests())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = sum(len(v) for v in toks.values())
+        graphs = getattr(be, "graphs", None)
+        out[mode][run] = {
+            "wall_s": wall, "tok_per_s": n / wall, "tokens_committed": n,
+            "decode_dispatches": be.decode_dispatches - n_dec,
+            "prefill_dispatches": be.prefill_dispatches - n_pre,
+            "graphs": None if graphs is None else len(graphs.entries),
+            "tokens_sha1": hashlib.sha1(json.dumps(
+                [toks[r] for r in sorted(toks)]).encode()).hexdigest()}
     del be, eng
     torch.cuda.empty_cache()
 print("AB " + json.dumps(out))

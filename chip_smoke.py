@@ -162,7 +162,24 @@ Phases, in order (any failed check raises and the script exits non-zero):
    mesh, against the same step on the card: argument bytes vs
    ``memory_allocated()`` (equal within the allocator's rounding), the
    predicted peak vs ``max_memory_allocated()``, the trace's roofline time
-   vs the step's wall (readings).
+   vs the step's wall (readings);
+15. captured dispatches (run inside the SDAR-8B block, after 7c): the
+   paged dispatches of ``ModelBackend`` replay one CUDA graph per bucket
+   on the card (``serving/graphs.py``).  (i) SDAR-8B's decode at B 8, c
+   32 with every context at 512 and at 2048, a chunked prefill of 512
+   after 512 and a wave prefill of [8, 512], each through a captured
+   backend and its eager twin (``graphs=False``) on the same pool
+   contents and host arrays: conf and tok bit-equal, the pools equal, the
+   captured pool in place, launches a replay = the eager call's (layers
+   a call); both paths' wall, device ms, kernels and busy share; (ii) the
+   graphs captured, the seconds spent capturing them and the graph
+   pools' bytes, here and over the serving runs; (iii) every serving run
+   of phases 7, 7b and 7c runs captured after its eager twin, and its
+   committed tokens' sha1, dispatches and launches must equal the
+   twin's (the twin records the logit gaps the bf16 rule reads, which a
+   replay does not compute on the host).  Scout-8L and Qwen2-VL elastic
+   serve captured, Qwen2-VL wave eager (its gaps are compare_runs'
+   readings); the slot-path runs (phases 10, 11, 13) are eager.
    Each model is freed before the next is drawn.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -966,12 +983,25 @@ def profile_dispatch(dispatch, kernel: str | None, iters: int, n: int,
 
     walls = {"kernel": [wall_ms("kernel")], "ref": [wall_ms("ref")]}
     walls["kernel"].append(wall_ms("kernel"))
+    return {"wall_ms_kernel": walls["kernel"], "wall_ms_plain": walls["ref"],
+            **device_profile(lambda: dispatch("kernel"), kernel, n, ops)}
+
+
+def device_profile(run, kernel: str | None, n: int, ops: tuple = (),
+                   require: bool = True) -> dict:
+    """``torch.profiler`` over ``n`` calls of ``run``: device time, busy
+    share of the wall, the share of the device kernel whose name holds
+    ``kernel``, the device time of each op or range in ``ops``, the top
+    kernels.  ``require``: raise when ``kernel`` or an op shows no device
+    time."""
+    import torch
+
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            dispatch("kernel")
+            run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = torch.autograd.DeviceType
@@ -984,16 +1014,15 @@ def profile_dispatch(dispatch, kernel: str | None, iters: int, n: int,
                   key=lambda r: -r[1])
     busy = sum(t for _, t, _ in kern)
     mine = sum(t for k, t, _ in kern if kernel and kernel in k)
-    if kernel and not mine > 0:
+    if require and kernel and not mine > 0:
         raise AssertionError(f"profile: {kernel} shows no device time")
     op_us = {op: sum(e.device_time_total for e in prof.key_averages()
                      if e.key == op and e.device_type == dev.CPU)
              for op in ops}
     for op, t in op_us.items():
-        if not t > 0:
+        if require and not t > 0:
             raise AssertionError(f"profile: {op} shows no device time")
-    return {"wall_ms_kernel": walls["kernel"], "wall_ms_plain": walls["ref"],
-            "profiled_dispatches": n,
+    return {"profiled_dispatches": n,
             "wall_ms_profiled": wall_us / n / 1e3,
             "device_ms_per_dispatch": busy / n / 1e3,
             "device_busy_share": busy / wall_us,
@@ -1853,6 +1882,43 @@ def prefill_model_phase(model, params, pool, seed: int) -> dict:
 # serving phase (the main path)
 # ---------------------------------------------------------------------------
 
+# graph captures on the card over the whole script: count and host seconds
+# (``time_captures`` wraps ``CudaCapturer.capture``)
+CAPTURES = {"n": 0, "s": 0.0}
+
+
+def time_captures():
+    """Count every CUDA-graph capture and the host seconds it takes (the
+    capture's Python and the graph's instantiation) into CAPTURES."""
+    from repro_torch.serving import graphs
+
+    capture = graphs.CudaCapturer.capture
+
+    def timed(self, fn, like):
+        t0 = time.perf_counter()
+        try:
+            return capture(self, fn, like)
+        finally:
+            CAPTURES["n"] += 1
+            CAPTURES["s"] += time.perf_counter() - t0
+
+    graphs.CudaCapturer.capture = timed
+
+
+def graph_stats(be, since: dict | None = None) -> dict | None:
+    """A backend's graph cache (None for an eager backend): graphs
+    captured, replays, the bytes its memory pool holds, and the capture
+    seconds since ``since`` (a copy of CAPTURES)."""
+    if be.graphs is None:
+        return None
+    out = {"graphs": len(be.graphs.entries), "replays": be.graphs.replays,
+           "pool_bytes": be.graphs.pool_bytes()}
+    if since is not None:
+        out["captures"] = CAPTURES["n"] - since["n"]
+        out["capture_s"] = CAPTURES["s"] - since["s"]
+    return out
+
+
 def record_gaps(be, gaps: dict, margins: dict | None = None,
                 steps: dict | None = None):
     """While a diffusion run serves, note for every committed token the
@@ -1912,11 +1978,17 @@ def record_gaps(be, gaps: dict, margins: dict | None = None,
 
 
 def serve_run(model, params, mode: str, reqs, max_len: int,
-              kv_shards: int = 1) -> dict:
+              kv_shards: int = 1, graphs: bool = True) -> dict:
     """One serving run: ``mode`` "elastic" (chunked prefill), "ar", or
     "wave" (the elastic run with wave prefill); with ``kv_shards`` > 1 on a
     pool sharded over a ``kv_shards``-way mesh of this one card (phase
-    7c), every paged read split-KV."""
+    7c), every paged read split-KV.  ``graphs``: the paged dispatches
+    replay captured CUDA graphs (the backend's default on the card), or
+    run eagerly; only an eager run records the decode dispatches' logit
+    gaps (:func:`record_gaps`), which a replay does not compute on the
+    host."""
+    import hashlib
+
     import torch
 
     from repro_torch.analysis import rules
@@ -1938,7 +2010,8 @@ def serve_run(model, params, mode: str, reqs, max_len: int,
     be = ModelBackend(model, params, n_slots=8, max_len=max_len,
                       decode_mode="ar" if mode == "ar" else "elastic",
                       cache_dtype=torch.bfloat16, device=DEVICE,
-                      prefill_mode="wave" if wave else "chunked", **shard_kw)
+                      prefill_mode="wave" if wave else "chunked",
+                      graphs=graphs, **shard_kw)
     if mode in ("elastic", "wave"):   # as launch/serve.py builds it
         sched = ElasticScheduler.from_analytic(
             AnalyticDeviceModel(cfg, CPU_HOST),
@@ -1949,26 +2022,23 @@ def serve_run(model, params, mode: str, reqs, max_len: int,
     shapes = {"decode": [], "prefill": []}
     budget_findings = []
 
-    def record(kind, fn):
-        # every dispatch's returned tensors other than the pool's held to
-        # rule HLO003's budget: 8·B·c bytes a decode, 8·B a prefill
-        def wrapped(params, cache, tokens, *a, **k):
-            shapes[kind].append(tuple(tokens.shape))
-            out = fn(params, cache, tokens, *a, **k)
-            B, c = tokens.shape
-            budget_findings.extend(rules.check_host_budget(
-                [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)],
-                budget_bytes=8 * B * (c if kind == "decode" else 1),
-                pool=cache, target=f"{kind} {tuple(tokens.shape)}"))
-            return out
-        return wrapped
+    dispatch = be._dispatch
 
-    prefill_fn = "prefill_paged" if wave else "prefill_chunk_paged"
-    model.decode_step_paged = record("decode", type(model).decode_step_paged
-                                     .__get__(model))
-    setattr(model, prefill_fn, record("prefill", getattr(type(model),
-                                                         prefill_fn)
-                                      .__get__(model)))
+    def record(kind, fn, **host):
+        # at the backend, which sees every dispatch, replayed or not: each
+        # dispatch's returned tensors other than the pool's held to rule
+        # HLO003's budget, 8·B·c bytes a decode, 8·B a prefill
+        out = dispatch(kind, fn, **host)
+        B, c = host["toks"].shape
+        kind = "decode" if kind == "decode" else "prefill"
+        shapes[kind].append((B, c))
+        budget_findings.extend(rules.check_host_budget(
+            [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)],
+            budget_bytes=8 * B * (c if kind == "decode" else 1),
+            pool=be.kv, target=f"{kind} {(B, c)}"))
+        return out
+
+    be._dispatch = record
     outs, gaps, gap_of, margins, margin_of = {}, {}, {}, {}, {}
     steps, steps_of = {}, {}
     release = be.release
@@ -1984,12 +2054,13 @@ def serve_run(model, params, mode: str, reqs, max_len: int,
     be.release = spy
     ptrs = rules.pool_ptrs(be.kv)
     eng = ServingEngine(be, sched, max_batch=8)
-    undo = record_gaps(be, gaps, margins, steps) if mode != "ar" \
-        else (lambda: None)
+    undo = record_gaps(be, gaps, margins, steps) \
+        if mode != "ar" and not graphs else (lambda: None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cpa.LAUNCHES = cpa.MERGE_LAUNCHES = bda.LAUNCHES = 0
     moe.GROUPED_CALLS = 0
+    captures = dict(CAPTURES)
     t0 = time.perf_counter()
     try:
         rep = eng.run(list(reqs))
@@ -1999,8 +2070,6 @@ def serve_run(model, params, mode: str, reqs, max_len: int,
     wall = time.perf_counter() - t0
     launches, bd_launches = cpa.LAUNCHES, bda.LAUNCHES
     merges, grouped = cpa.MERGE_LAUNCHES, moe.GROUPED_CALLS
-    delattr(model, prefill_fn)
-    del model.decode_step_paged
 
     n_dec, n_pre = be.decode_dispatches, be.prefill_dispatches
     tokens = sum(len(v) for v in outs.values())
@@ -2019,7 +2088,11 @@ def serve_run(model, params, mode: str, reqs, max_len: int,
            "chunks": sorted({c for _, c in shapes["decode"]}),
            "batches": sorted({b for b, _ in shapes["decode"]}),
            "device_dispatches": be.device_dispatches,
-           "collective_bytes": be.collective_bytes}
+           "collective_bytes": be.collective_bytes,
+           "path": "captured" if graphs else "eager",
+           "tokens_sha1": hashlib.sha1(json.dumps(
+               [outs[r.rid] for r in reqs]).encode()).hexdigest(),
+           "graphs": graph_stats(be, captures)}
     # the analytic cross-shard merge traffic of the dispatches made: every
     # decode and chunked-prefill dispatch reads the pool (a wave writes only)
     want_bytes = sum(_split_kv_collective_bytes(S, cfg.n_layers, cfg.n_heads,
@@ -2027,7 +2100,7 @@ def serve_run(model, params, mode: str, reqs, max_len: int,
                      for b, t in shapes["decode"]
                      + ([] if wave else shapes["prefill"]))
     log(f"serve {cfg.name} ({cfg.n_layers} layers) {mode}"
-        f"{f', {S} kv shards' if S > 1 else ''}: "
+        f"{f', {S} kv shards' if S > 1 else ''}, {res['path']}: "
         f"{res['requests']} requests finished, {tokens} "
         f"tokens committed, {n_dec} decode + {n_pre} prefill dispatches, "
         f"{launches} paged ({merges} with a split merge) + {bd_launches} "
@@ -2038,7 +2111,8 @@ def serve_run(model, params, mode: str, reqs, max_len: int,
         f"{res['tok_per_s']:.2f} committed tok/s, max_memory_allocated "
         f"{res['max_memory_allocated']} B, chunks {res['chunks']}, "
         f"batches {res['batches']}; device dispatches "
-        f"{be.device_dispatches}, collective bytes {be.collective_bytes}")
+        f"{be.device_dispatches}, collective bytes {be.collective_bytes}; "
+        f"graphs {res['graphs']}; tokens sha1 {res['tokens_sha1']}")
 
     checks = [
         (len(rep.metrics) == len(reqs), "not every request finished"),
@@ -2086,6 +2160,47 @@ def serve_run(model, params, mode: str, reqs, max_len: int,
     res["margins"] = margin_of
     res["steps"] = steps_of
     return res
+
+
+TWIN_KEYS = ("wall_s", "tok_per_s", "kernel_launches", "merge_launches",
+             "bd_kernel_launches", "grouped_mm_calls", "decode_dispatches",
+             "prefill_dispatches", "max_memory_allocated", "tokens_sha1")
+
+
+def hold_twins(what: str, run: dict, eager: dict) -> dict:
+    """Phase 15 (iii): a captured run against its eager twin — the same
+    committed tokens (sha1), dispatches and launches.  Returns ``run`` with
+    the twin's readings under "eager" and its recorded logit gaps."""
+    same = {k: run[k] == eager[k] for k in TWIN_KEYS
+            if k in run and not k.startswith(("wall", "tok_per", "max_"))}
+    log(f"{what}: captured {run['wall_s']:.3f} s against eager "
+        f"{eager['wall_s']:.3f} s wall; the same {sorted(same)}: "
+        f"{all(same.values())}")
+    if not all(same.values()):
+        raise AssertionError(f"{what}: the captured run differs from its "
+                             f"eager twin in "
+                             f"{[k for k, v in same.items() if not v]}")
+    run["eager"] = {k: eager[k] for k in TWIN_KEYS if k in eager}
+    for k in ("outputs", "gaps", "margins", "steps"):
+        if k in eager:
+            run[k] = eager[k]
+    return run
+
+
+def serve_twins(model, params, mode: str, reqs, max_len: int,
+                kv_shards: int = 1) -> dict:
+    """One serving run eagerly (it records the logit gaps), then captured
+    (the backend's default), each on ``reqs()``; held by
+    :func:`hold_twins`."""
+    import torch
+
+    eager = serve_run(model, params, mode, reqs(), max_len, kv_shards,
+                      graphs=False)
+    torch.cuda.empty_cache()
+    run = serve_run(model, params, mode, reqs(), max_len, kv_shards)
+    return hold_twins(f"serve {model.cfg.name} {mode}"
+                      f"{f', {kv_shards} kv shards' if kv_shards > 1 else ''}",
+                      run, eager)
 
 
 def dispatch_divergence(run, base, what: str) -> dict:
@@ -2218,8 +2333,10 @@ CLUSTER_MEM_RTOL = 0.05          # the second replica's rise vs its pool
 DRILL_PROMPT, DRILL_NEW, DRILL_SPILL_AT = 256, 64, 8
 
 
-def build_replicas(model, params, n: int, router, **kw):
-    """``build_model_cluster`` on the card in bf16, with
+def build_replicas(model, params, n: int, router, graphs: bool = True,
+                   **kw):
+    """``build_model_cluster`` on the card in bf16, every replica's paged
+    dispatches captured (``graphs``) or eager, with
     ``torch.cuda.memory_allocated()`` read before the first replica and
     after each replica's backend is built."""
     import torch
@@ -2231,7 +2348,7 @@ def build_replicas(model, params, n: int, router, **kw):
     mem = [torch.cuda.memory_allocated()]
 
     def counted(*a, **k):
-        be = backend(*a, **k)
+        be = backend(*a, graphs=graphs, **k)
         torch.cuda.synchronize()
         mem.append(torch.cuda.memory_allocated())
         return be
@@ -2311,10 +2428,13 @@ def raise_failed(what, checks):
 
 
 def cluster_run(model, params, name: str, router: str, prefill_mode: str,
-                reqs) -> dict:
+                reqs, graphs: bool = True) -> dict:
     """One ``build_model_cluster`` run of two SDAR-8B replicas sharing the
-    weights: every request at t = 0, the kernels' launch counts set to 0
-    before ``ClusterEngine.run`` and read after it."""
+    weights, their dispatches captured (``graphs``) or eager: every request
+    at t = 0, the kernels' launch counts set to 0 before
+    ``ClusterEngine.run`` and read after it."""
+    import hashlib
+
     import torch
 
     from repro_torch.analysis import rules
@@ -2325,7 +2445,7 @@ def cluster_run(model, params, name: str, router: str, prefill_mode: str,
     cfg = model.cfg
     host_pages = -(-(CLUSTER_PROMPT[1] + CLUSTER_NEW[1]) // cfg.kv_page_size)
     cluster, mem = build_replicas(
-        model, params, 2, router, profile=DATASETS["sharegpt"],
+        model, params, 2, router, graphs, profile=DATASETS["sharegpt"],
         mode="elastic", n_slots=8, max_len=CLUSTER_MAX_LEN,
         prefill_mode=prefill_mode, host_kv_pages=host_pages)
     cores = cluster.replicas
@@ -2335,6 +2455,7 @@ def cluster_run(model, params, name: str, router: str, prefill_mode: str,
     outs = spy_outputs(cores)
     torch.cuda.synchronize()
     cpa.LAUNCHES = cpa.MERGE_LAUNCHES = bda.LAUNCHES = 0
+    captures = dict(CAPTURES)
     t0 = time.perf_counter()
     rep = cluster.run(list(reqs))
     torch.cuda.synchronize()
@@ -2355,8 +2476,15 @@ def cluster_run(model, params, name: str, router: str, prefill_mode: str,
            "kernel_launches": launches, "merge_launches": merges,
            "bd_kernel_launches": bd_launches,
            "pool_bytes": sizes, "memory_rise_second_replica": rise,
-           "outputs": {rid: toks for (_, rid), toks in outs.items()}}
-    log(f"cluster {name} ({router}, {prefill_mode} prefill, 2 replicas of "
+           "outputs": {rid: toks for (_, rid), toks in outs.items()},
+           "path": "captured" if graphs else "eager",
+           "graphs": [graph_stats(core.backend) for core in cores],
+           "capture_s": CAPTURES["s"] - captures["s"] if graphs else None}
+    res["tokens_sha1"] = hashlib.sha1(json.dumps(
+        [res["outputs"][rid] for rid in sorted(res["outputs"])]).encode()
+                                      ).hexdigest()
+    log(f"cluster {name}, {res['path']} ({router}, {prefill_mode} prefill, "
+        f"2 replicas of "
         f"{cfg.name}, {cfg.n_layers} layers): {res['requests']} requests "
         f"finished, {tokens} tokens committed in {wall:.3f} s wall "
         f"({res['tok_per_s']:.2f} committed tok/s); routed "
@@ -2365,7 +2493,7 @@ def cluster_run(model, params, name: str, router: str, prefill_mode: str,
         f"dispatches {n_dec}, prefill dispatches {n_pre}; {launches} paged "
         f"({merges} with a split merge) + {bd_launches} block-diffusion "
         f"launches; pools {sizes} B, memory_allocated rose {rise} B when "
-        f"the second replica was built")
+        f"the second replica was built; graphs {res['graphs']}")
     weights = sum(t.numel() * t.element_size() for t in params.values())
     checks = cluster_checks(f"cluster {name}", cfg, params, cores, ptrs,
                             outs, reqs) + [
@@ -2390,7 +2518,8 @@ def cluster_run(model, params, name: str, router: str, prefill_mode: str,
     return res
 
 
-def migration_drill(model, params, seed: int) -> dict:
+def migration_drill(model, params, seed: int, graphs: bool = True,
+                    eager: dict | None = None) -> dict:
     """The migration drill of the reference's fault-tolerance tests at
     full width: one request (prompt 256, 64 new tokens) on replica 0 is
     force-spilled once it has committed 8 tokens, migrated out and into
@@ -2399,7 +2528,11 @@ def migration_drill(model, params, seed: int) -> dict:
     before the spill, the destination's pages must hold them after the
     swap-in, and the tokens must equal the uninterrupted run's (else the
     first divergence and its top-1/top-2 gap are recorded; a gap above
-    the bf16 tolerance is a fault)."""
+    the bf16 tolerance is a fault).  With ``graphs`` the replicas'
+    dispatches are captured and the gap is that of ``eager``, the drill's
+    eager twin (a replay computes no logits on the host)."""
+    import hashlib
+
     import torch
 
     from repro_torch.analysis import rules
@@ -2410,9 +2543,10 @@ def migration_drill(model, params, seed: int) -> dict:
     cfg = model.cfg
     n_pages = -(-(DRILL_PROMPT + DRILL_NEW) // cfg.kv_page_size)
     cluster, _ = build_replicas(
-        model, params, 3, "round_robin", profile=DATASETS["sharegpt"],
-        mode="bd8", n_slots=8, max_len=CLUSTER_MAX_LEN,
-        prefill_mode="chunked", host_kv_pages=n_pages)
+        model, params, 3, "round_robin", graphs,
+        profile=DATASETS["sharegpt"], mode="bd8", n_slots=8,
+        max_len=CLUSTER_MAX_LEN, prefill_mode="chunked",
+        host_kv_pages=n_pages)
     cores = cluster.replicas
     src, dst, solo = cores
     ptrs = [rules.pool_ptrs(core.backend.kv) for core in cores]
@@ -2423,7 +2557,7 @@ def migration_drill(model, params, seed: int) -> dict:
     bits = lambda t: t.contiguous().view(torch.int16)  # noqa: E731
 
     def serve(core, gaps, req=None):
-        undo = record_gaps(core.backend, gaps)
+        undo = (lambda: None) if graphs else record_gaps(core.backend, gaps)
         try:
             if req is not None:
                 core.submit(req)
@@ -2434,6 +2568,7 @@ def migration_drill(model, params, seed: int) -> dict:
 
     torch.cuda.synchronize()
     cpa.LAUNCHES = cpa.MERGE_LAUNCHES = bda.LAUNCHES = 0
+    captures = dict(CAPTURES)
     t0 = time.perf_counter()
     solo_gaps, mig_gaps = {}, {}
     serve(solo, solo_gaps, make()[0])
@@ -2481,7 +2616,9 @@ def migration_drill(model, params, seed: int) -> dict:
     first = next((i for i, (a, b) in enumerate(zip(base, mig)) if a != b),
                  None)
     gap = None
-    if first is not None:
+    if first is not None and eager is not None:
+        gap = eager["gap_at_first_divergence"]
+    elif first is not None:
         gaps = [g.get(first) for g in (*solo_gaps.values(),
                                        *mig_gaps.values())]
         gap = min((g for g in gaps if g is not None), default=None)
@@ -2500,8 +2637,14 @@ def migration_drill(model, params, seed: int) -> dict:
            "first_divergence": first, "gap_at_first_divergence": gap,
            "wall_s": wall, "tokens_committed": len(base) + len(mig),
            "kernel_launches": launches, "merge_launches": merges,
-           "bd_kernel_launches": bd_launches}
-    log(f"migration drill ({cfg.name}, {cfg.n_layers} layers): spilled at "
+           "bd_kernel_launches": bd_launches,
+           "path": "captured" if graphs else "eager",
+           "tokens_sha1": hashlib.sha1(json.dumps([base, mig]).encode()
+                                       ).hexdigest(),
+           "graphs": [graph_stats(core.backend) for core in cores],
+           "capture_s": CAPTURES["s"] - captures["s"] if graphs else None}
+    log(f"migration drill, {res['path']} ({cfg.name}, {cfg.n_layers} "
+        f"layers): spilled at "
         f"{committed} committed tokens ({n_tokens} tokens in {len(table)} "
         f"pages), ticket K/V equal to the source pages: {payload_equal}, "
         f"the destination's pages after swap-in: {swap_equal}; migrated "
@@ -2530,7 +2673,8 @@ def migration_drill(model, params, seed: int) -> dict:
 def cluster_phase(model, params, seed: int, elastic: dict) -> dict:
     """Phase 7b: (i) chunked prefill behind the saturation router, (ii)
     wave prefill behind round robin, on the same 12 requests, and (iii)
-    the migration drill.  The first 8 requests are phase 7's elastic
+    the migration drill, each eagerly and then captured, held to its eager
+    twin (:func:`hold_twins`).  The first 8 requests are phase 7's elastic
     run's; how many commit the same tokens, and where each first differs,
     is a reading."""
     import torch
@@ -2542,10 +2686,13 @@ def cluster_phase(model, params, seed: int, elastic: dict) -> dict:
     runs = []
     for name, router, prefill in (("chunked", "saturation", "chunked"),
                                   ("wave", "round_robin", "wave")):
-        runs.append(cluster_run(model, params, name, router, prefill,
-                                reqs()))
-        gc.collect()
-        torch.cuda.empty_cache()
+        twin = []
+        for graphs in (False, True):
+            twin.append(cluster_run(model, params, name, router, prefill,
+                                    reqs(), graphs))
+            gc.collect()
+            torch.cuda.empty_cache()
+        runs.append(hold_twins(f"cluster {name}", twin[1], twin[0]))
     first = {rid: next((i for i, (a, b) in enumerate(
         zip(runs[0]["outputs"][rid], toks)) if a != b), None)
         for rid, toks in elastic["outputs"].items()}
@@ -2553,7 +2700,11 @@ def cluster_phase(model, params, seed: int, elastic: dict) -> dict:
     log(f"cluster chunked vs phase 7's elastic run: {same} of "
         f"{len(first)} shared requests commit the same tokens; first "
         f"divergence by request {first}")
-    drill = migration_drill(model, params, seed)
+    eager = migration_drill(model, params, seed, graphs=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    drill = hold_twins("migration drill", migration_drill(
+        model, params, seed, eager=eager), eager)
     gc.collect()
     torch.cuda.empty_cache()
     for r in runs:
@@ -2871,7 +3022,7 @@ def split_phase(model, params, seed: int, base: dict) -> dict:
     torch.cuda.empty_cache()
     runs, vs = [], {}
     for mode, S in SPLIT_SERVE:
-        run = serve_run(model, params, mode, make_requests(
+        run = serve_twins(model, params, mode, lambda: make_requests(
             model.cfg, seed, 8, (128, 512), (64, 128)), max_len=1024,
             kv_shards=S)
         what = f"{mode}, {S} kv shards vs unsharded"
@@ -2886,6 +3037,185 @@ def split_phase(model, params, seed: int, base: dict) -> dict:
     log(f"phase 7c: {wall:.3f} s wall")
     return {"kernel_level": kernel, "dispatch_level": dispatch,
             "runs": runs, "vs_unsharded": vs, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
+# captured dispatches (phase 15): one CUDA graph per bucket against eager
+# ---------------------------------------------------------------------------
+
+GRAPH_B, GRAPH_C, GRAPH_T = 8, 32, 512
+GRAPH_CTX = (512, 2048)            # the decode dispatch's contexts
+GRAPH_ITERS, GRAPH_PROFILED = 5, 3
+
+
+def graphs_phase(model, params, seed: int) -> dict:
+    """Phase 15 (i)-(ii): SDAR-8B's three paged dispatches through a
+    captured ``ModelBackend`` and its eager twin (``graphs=False``), each
+    with its own bf16 pool holding the same random K/V and the same 8
+    requests' pages: decode at B 8, c 32 with every context at 512 and at
+    2048 (4 window tokens frozen a row), a chunked prefill of 512 tokens
+    after 512, a wave prefill of [8, 512] at shape (e)'s lengths.  Each
+    runs once on both sides (the captured side captures), then once more:
+    conf and tok bit-equal, the pools bit-equal, the captured pool in
+    place, the kernels' launches a replay as many as the eager call's
+    (layers for the paged kernel in decode and chunked prefill, with the
+    same merges; layers for the block-diffusion kernel in the wave).
+    Then each side's wall (host clock around the dispatch and its conf/tok
+    fetch, median of GRAPH_ITERS) and ``torch.profiler`` over
+    GRAPH_PROFILED calls: device ms, kernels, busy share.  (ii) The
+    captured side's graphs, capture seconds and graph-pool bytes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import rules
+    from repro_torch.kernels import block_diffusion_attn as bda
+    from repro_torch.kernels import chunked_paged_attn as cpa
+    from repro_torch.serving import ModelBackend
+
+    cfg = model.cfg
+    B, c, T = GRAPH_B, GRAPH_C, GRAPH_T
+    t0 = time.perf_counter()
+    captures = dict(CAPTURES)
+    max_len = max(GRAPH_CTX) + c
+    sides = {side: ModelBackend(model, params, n_slots=B, max_len=max_len,
+                                cache_dtype=torch.bfloat16, device=DEVICE,
+                                graphs=side == "captured")
+             for side in ("captured", "eager")}
+    cap, eag = sides["captured"], sides["eager"]
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    for be in sides.values():
+        for r in range(B):
+            be.kv.allocate(r, max_len)
+    for a, b in zip(rules.pool_tensors(cap.kv), rules.pool_tensors(eag.kv)):
+        a.copy_(torch.randn(a.shape, generator=g, device=DEVICE))
+        b.copy_(a)
+    ptrs = rules.pool_ptrs(cap.kv)
+    tables = {side: np.asarray(be.kv.batch_tables(list(range(B)),
+                                                  be._table_width), np.int32)
+              for side, be in sides.items()}
+    if not np.array_equal(tables["captured"], tables["eager"]):
+        raise AssertionError("phase 15: the two pools' tables differ")
+    tables = tables["eager"]
+    rng = np.random.default_rng(seed)
+    V = cfg.vocab_size
+
+    def window(ctx):
+        w = np.full((B, c), cfg.mask_token_id, np.int64)
+        w[:, :4] = rng.integers(4, V - 8, (B, 4))
+        return dict(toks=w, start=np.full(B, ctx, np.int64),
+                    valid=np.full(B, c, np.int64), tables=tables,
+                    n_adv=np.full(B, 4, np.int64))
+
+    prompts = rng.integers(4, V - 8, (B, T)).astype(np.int64)
+    cases = [(f"decode, ctx {ctx}", "decode", "_decode", window(ctx))
+             for ctx in GRAPH_CTX] + [
+        ("prefill chunk, [8, 512] after 512", "chunk", "_chunk",
+         dict(toks=prompts, offs=np.full(B, T, np.int64),
+              valid=np.full(B, T, np.int64), tables=tables)),
+        ("wave prefill, [8, 512]", "wave", "_wave",
+         dict(toks=prompts, lens=np.asarray(WAVE_LENGTHS, np.int32),
+              tables=tables))]
+
+    def counts():
+        return np.array([cpa.LAUNCHES, cpa.MERGE_LAUNCHES, bda.LAUNCHES])
+
+    rows, launches = [], np.zeros(3, np.int64)
+    for what, kind, fn, host in cases:
+        def call(side):
+            be = sides[side]
+            conf, tok = be._dispatch(kind, getattr(be, fn), **host)
+            return conf.cpu(), tok.cpu()
+
+        n0 = counts()
+        for side in sides:                 # the captured side captures
+            call(side)
+        per = {}
+        out = {}
+        for side in sides:
+            c0 = counts()
+            out[side] = call(side)
+            per[side] = counts() - c0
+        launches += counts() - n0
+        paged, merges, bd = per["captured"]
+        want = (0 if kind == "wave" else cfg.n_layers,
+                cfg.n_layers if kind == "wave" else 0)
+        checks = [
+            (torch.equal(out["captured"][0], out["eager"][0])
+             and torch.equal(out["captured"][1], out["eager"][1]),
+             "conf/tok differ from the eager twin's"),
+            (all(torch.equal(a, b) for a, b in zip(
+                rules.pool_tensors(cap.kv), rules.pool_tensors(eag.kv))),
+             "the pools differ from the eager twin's"),
+            *pool_checks("phase 15 pool", cap.kv, ptrs),
+            ((paged, bd) == want and np.array_equal(per["captured"],
+                                                   per["eager"]),
+             f"launches a replay {per['captured'].tolist()}, eager "
+             f"{per['eager'].tolist()}, want paged/bd {want}"),
+        ]
+        raise_failed(f"phase 15 {what}", checks)
+        row = {"dispatch": what, "kind": kind, "bit_equal": True,
+               "launches_per_call": per["captured"].tolist()}
+        kernel = "block_diffusion" if kind == "wave" else "paged_chunk_attn"
+        for side in sides:
+            c0 = counts()
+            ts = []
+            for _ in range(GRAPH_ITERS):
+                t1 = time.perf_counter()
+                call(side)
+                ts.append((time.perf_counter() - t1) * 1e3)
+            prof = device_profile(lambda: call(side), kernel, GRAPH_PROFILED,
+                                  require=side == "eager")
+            n = GRAPH_ITERS + GRAPH_PROFILED
+            dl = counts() - c0
+            launches += dl
+            if not np.array_equal(dl, n * per[side]):
+                raise AssertionError(f"phase 15 {what} {side}: launches "
+                                     f"{dl.tolist()} over {n} calls of "
+                                     f"{per[side].tolist()}")
+            row[side] = {"wall_ms": ts, "wall_ms_median":
+                         statistics.median(ts), **prof}
+            log(f"phase 15 {what}, {side}: wall {statistics.median(ts):.2f}"
+                f" ms (median of {GRAPH_ITERS}: "
+                f"{', '.join(f'{t:.2f}' for t in ts)}); profiled wall "
+                f"{prof['wall_ms_profiled']:.2f} ms, device "
+                f"{prof['device_ms_per_dispatch']:.2f} ms (busy share "
+                f"{prof['device_busy_share']:.3f}) in "
+                f"{prof['device_kernels_per_dispatch']:.0f} kernels; "
+                f"{kernel} {prof['kernel_ms_per_dispatch']:.3f} ms")
+        rows.append(row)
+    raise_failed("phase 15", pool_checks("phase 15 pool", cap.kv, ptrs))
+    stats = graph_stats(cap, captures)
+    res = {"dispatches": rows, "kernel_launches": int(launches[0]),
+           "merge_launches": int(launches[1]),
+           "bd_kernel_launches": int(launches[2]),
+           "capture": stats, "wall_s": time.perf_counter() - t0}
+    log(f"phase 15 (i): every dispatch bit-equal to its eager twin, pools "
+        f"equal and in place; (ii) capture: {stats}; "
+        f"{res['wall_s']:.3f} s wall")
+    del sides, cap, eag
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def capture_totals(runs: list) -> dict:
+    """Phase 15 (ii) over the serving runs: the captured backends' graphs,
+    replays, graph-pool bytes and capture seconds, summed (a cluster run
+    or drill keeps a list of its replicas' and its own seconds)."""
+    stats, secs = [], 0.0
+    for r in runs:
+        many = isinstance(r["graphs"], list)
+        stats += [g for g in (r["graphs"] if many else [r["graphs"]]) if g]
+        secs += (r["capture_s"] if many else
+                 (r["graphs"] or {}).get("capture_s")) or 0.0
+    pools = [g["pool_bytes"] for g in stats]
+    out = {"backends": len(stats), "graphs": sum(g["graphs"] for g in stats),
+           "replays": sum(g["replays"] for g in stats), "capture_s": secs,
+           "pool_bytes_max": None if None in pools else max(pools,
+                                                            default=0),
+           "pool_bytes_sum": None if None in pools else sum(pools)}
+    log(f"phase 15 (ii), the captured serving runs: {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4315,6 +4645,7 @@ def main() -> int:
 
     from repro_torch.kernels import build
 
+    time_captures()
     t0 = time.perf_counter()
     libs = build.build(build.all_sources())
     build_s = time.perf_counter() - t0
@@ -4388,15 +4719,15 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
     del pool
     torch.cuda.empty_cache()
 
-    runs = [serve_run(model, params, "elastic", elastic_reqs(cfg),
-                      max_len=1024)]
+    # phase 7 (and 7b, 7c) captured, each run held to its eager twin
+    runs = [serve_twins(model, params, "elastic", lambda: elastic_reqs(cfg),
+                        max_len=1024)]
     torch.cuda.empty_cache()
-    runs.append(serve_run(model, params, "ar",
-                          make_requests(cfg, args.seed + 1, 4, (128, 256),
-                                        (16, 32)), max_len=512))
+    runs.append(serve_twins(model, params, "ar", lambda: make_requests(
+        cfg, args.seed + 1, 4, (128, 256), (16, 32)), max_len=512))
     torch.cuda.empty_cache()
-    runs.append(serve_run(model, params, "wave", elastic_reqs(cfg),
-                          max_len=1024))
+    runs.append(serve_twins(model, params, "wave", lambda: elastic_reqs(cfg),
+                            max_len=1024))
     wave_vs_chunked = {"sdar-8b": compare_runs(runs[2], runs[0])}
     torch.cuda.empty_cache()
     log_phase("7b: SDAR-8B cluster")
@@ -4405,6 +4736,12 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
     log_phase("7c: SDAR-8B sharded page pool")
     split_res = split_phase(model, params, args.seed,
                             {"elastic": runs[0], "wave": runs[2]})
+    torch.cuda.empty_cache()
+    log_phase("15: SDAR-8B captured dispatches")
+    graphs_res = graphs_phase(model, params, args.seed)
+    graphs_res["serving"] = capture_totals(
+        runs + cluster_res["runs"] + [cluster_res["drill"]]
+        + split_res["runs"])
     del model, params
     free("sdar-8b")
 
@@ -4446,8 +4783,9 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
     runs.append(serve_run(model, params, "elastic", elastic_reqs(cfg),
                           max_len=1024))
     torch.cuda.empty_cache()
+    # eager: its logit gaps are the readings of compare_runs
     runs.append(serve_run(model, params, "wave", elastic_reqs(cfg),
-                          max_len=1024))
+                          max_len=1024, graphs=False))
     wave_vs_chunked[cfg.name] = compare_runs(runs[-1], runs[-2])
     del model, params
     free(cfg.name)
@@ -4516,6 +4854,8 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
     log_phase("done")
     cluster_runs = cluster_res["runs"] + [cluster_res["drill"]]
     split_runs = split_res["runs"]
+    twins = [r["eager"] for r in runs + cluster_runs + split_runs
+             if "eager" in r]
     head = kern_rows[0]
     kernels = [{
         "name": "paged_chunk_attention",
@@ -4525,11 +4865,13 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
         "launches": sum(r["kernel_launches"]
                         for r in runs + cluster_runs + split_runs)
         + encdec_res["kernel_launches"] + ep_res["model"]["kernel_launches"]
-        + a_model["kernel_launches"],
+        + a_model["kernel_launches"] + graphs_res["kernel_launches"]
+        + sum(r["kernel_launches"] for r in twins),
         "merge_launches": sum(r["merge_launches"]
-                              for r in runs + cluster_runs + split_runs)
+                              for r in runs + cluster_runs + split_runs
+                              + twins)
         + encdec_res["merge_launches"] + ep_res["model"]["merge_launches"]
-        + a_model["merge_launches"],
+        + a_model["merge_launches"] + graphs_res["merge_launches"],
         "launches_by_site": {"serving runs": sum(r["kernel_launches"]
                                                  for r in runs),
                              "cluster runs": sum(r["kernel_launches"]
@@ -4541,7 +4883,11 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
                              "encdec decoder reads":
                                  encdec_res["kernel_launches"],
                              "analysis (phase 14)":
-                                 a_model["kernel_launches"]},
+                                 a_model["kernel_launches"],
+                             "captured dispatches (phase 15)":
+                                 graphs_res["kernel_launches"],
+                             "eager twins (phase 15)": sum(
+                                 r["kernel_launches"] for r in twins)},
         "max_abs_err": max(r["max_abs_err"] for r in kern_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -4555,8 +4901,9 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
         "source": "src/repro_torch/kernels/csrc/block_diffusion_attn.cu",
         "replaces": "src/repro/kernels/block_diffusion_attn.py:86",
         "launches": sum(r["bd_kernel_launches"]
-                        for r in runs + cluster_runs + split_runs)
-        + encdec_res["bd_kernel_launches"] + a_model["bd_kernel_launches"],
+                        for r in runs + cluster_runs + split_runs + twins)
+        + encdec_res["bd_kernel_launches"] + a_model["bd_kernel_launches"]
+        + graphs_res["bd_kernel_launches"],
         "launches_by_site": {"serving runs": sum(r["bd_kernel_launches"]
                                                  for r in runs),
                              "cluster runs": sum(r["bd_kernel_launches"]
@@ -4566,7 +4913,11 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
                              "encdec encoder":
                                  encdec_res["bd_kernel_launches"],
                              "analysis (phase 14)":
-                                 a_model["bd_kernel_launches"]},
+                                 a_model["bd_kernel_launches"],
+                             "captured dispatches (phase 15)":
+                                 graphs_res["bd_kernel_launches"],
+                             "eager twins (phase 15)": sum(
+                                 r["bd_kernel_launches"] for r in twins)},
         "max_abs_err": max(r["max_abs_err"] for r in bd_rows),
         "ms": bd_rows[0]["ms"], "plain_ms": bd_rows[0]["plain_ms"],
         "bound_ms": bd_rows[0]["bound_ms"],
@@ -4588,7 +4939,8 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
              "ssm": ssm_res, "hybrid": hybrid_res, "serve": runs,
              "wave_vs_chunked": wave_vs_chunked, "train": train_res,
              "launcher": launcher_res, "encdec_train": enc_train_res,
-             "encdec": encdec_res, "analysis": analysis_res}, indent=1))
+             "encdec": encdec_res, "analysis": analysis_res,
+             "graphs": graphs_res}, indent=1))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ Usage::
         [--only hlo|lint] [--kv-shards 1,2] [--allowlist FILE]
         [--device cuda|cpu] [--verbose]
 
-Runs both passes — the dispatch audit over the dispatch inventory (Pass
-1, on ``--device``: the card by default, which raises without one) and the
+Runs both passes — the dispatch audit over the dispatch inventory and a
+backend's captured dispatches (Pass 1, on ``--device``: the card by
+default, which raises without one) and the
 AST repo lint (Pass 2) — filters findings through the allowlist, prints a
 report, and exits non-zero if any active finding remains.  ``--json``
 additionally writes the structured findings (active + waived).
@@ -104,6 +105,100 @@ def audit_entry(e, device, verbose: bool = False, stats=None) -> list:
     return findings
 
 
+def audit_graphs(kv_shards: int, device, verbose: bool = False,
+                 stats=None) -> list:
+    """The captured dispatches of a ``ModelBackend`` on the audit model at
+    ``kv_shards``: HLO005 over the graphs its decode path captures for raw
+    batches 1..4 (at most 3), then one replay of each dispatch kind
+    (decode, chunked prefill, wave prefill) held to HLO001 (the pool in
+    place; on the card no growth of ``memory_allocated``) and HLO003
+    (``8·B·c`` bytes out of a decode, ``8·B`` out of a prefill; on the
+    card no host sync).  The card captures CUDA graphs; elsewhere the
+    stand-in capturer (``RerunCapturer``) replays.  ``stats``, when given,
+    receives each replay's syncs and bytes grown and the graphs
+    captured."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import rules
+    from repro_torch.analysis.inventory import (AUDIT_ARCH, AUDIT_B, AUDIT_C,
+                                                AUDIT_T)
+    from repro_torch.launch.mesh import make_kv_mesh
+    from repro_torch.models import ArchConfig, build_model
+    from repro_torch.serving import ModelBackend
+    from repro_torch.serving.graphs import RerunCapturer
+
+    dev = torch.empty(0, device=device).device
+    cuda = dev.type == "cuda"
+    S = kv_shards
+    model = build_model(ArchConfig(**AUDIT_ARCH))
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+    be = ModelBackend(model, params, n_slots=8, max_len=64, kv_shards=S,
+                      device=dev, kv_mesh=make_kv_mesh(S, devices=[dev] * S)
+                      if S > 1 else None,
+                      graphs=True if cuda else RerunCapturer())
+    target = f"graphs@kv{S}"
+    B, c, T = AUDIT_B, AUDIT_C, AUDIT_T
+    rids = list(range(4))
+    for r in rids:
+        be.kv.allocate(r, T)
+
+    def window(b):
+        z = np.zeros(b, np.int64)
+        be._dispatch_window(rids[:b], np.zeros((b, c), np.int64), z,
+                            np.full(b, c, np.int64), z)
+
+    findings = rules.check_graph_churn(be.graphs, window, (1, 2, 3, 4),
+                                       declared_buckets=3, target=target)
+    i64 = np.int64
+    tables = np.asarray(be.kv.batch_tables(rids[:B], be._table_width),
+                        np.int32)
+    so = be._shard_offs(rids[:B], B)
+    kinds = {
+        "decode": (be._decode, 8 * B * c, dict(
+            toks=np.zeros((B, c), i64), start=np.full(B, T, i64),
+            valid=np.full(B, c, i64), tables=tables,
+            n_adv=np.zeros(B, i64), **so)),
+        "chunk": (be._chunk, 8 * B, dict(
+            toks=np.zeros((B, T), i64), offs=np.zeros(B, i64),
+            valid=np.full(B, T, i64), tables=tables, **so)),
+        "wave": (be._wave, 8 * B, dict(
+            toks=np.zeros((B, T), i64), lens=np.full(B, T, np.int32),
+            tables=tables)),
+    }
+    readings = {}
+    for kind, (fn, budget, host) in kinds.items():
+        be._dispatch(kind, fn, **host)          # captured at first use
+        n = len(be.graphs.entries)
+        ptrs = rules.pool_ptrs(be.kv)
+        if cuda:
+            torch.cuda.synchronize(dev)
+            before = torch.cuda.memory_allocated(dev)
+        syncs, out = rules.count_syncs(
+            lambda: be._dispatch(kind, fn, **host), dev)
+        grown = None
+        if cuda:
+            torch.cuda.synchronize(dev)
+            grown = torch.cuda.memory_allocated(dev) - before
+        if len(be.graphs.entries) != n:
+            raise RuntimeError(f"{target} {kind}: the audited call captured "
+                               f"a graph instead of replaying one")
+        what = f"{target}:{kind}"
+        findings += rules.check_pool_donation(be.kv, ptrs, target=what,
+                                              grown_bytes=grown)
+        findings += rules.check_host_budget(list(out), budget_bytes=budget,
+                                            pool=be.kv, syncs=syncs,
+                                            target=what)
+        readings[kind] = {"syncs": syncs, "grown_bytes": grown}
+    if stats is not None:
+        stats.update(replays=readings, graphs=len(be.graphs.entries))
+    if verbose:
+        print(f"[pass1] {target}: {len(be.graphs.entries)} graphs, "
+              f"replays {readings}", file=sys.stderr)
+    return findings
+
+
 def run_pass1(kv_shards_list, device="cuda", verbose=False) -> list:
     """Dispatch audit over the inventory, on ``device``."""
     import torch
@@ -118,6 +213,7 @@ def run_pass1(kv_shards_list, device="cuda", verbose=False) -> list:
     for shards in kv_shards_list:
         for e in build_entries(shards, device=device):
             findings += audit_entry(e, device, verbose=verbose)
+        findings += audit_graphs(shards, device, verbose=verbose)
     return findings
 
 

@@ -227,23 +227,29 @@ SCANNED_MODULES = (
     "src/repro_torch/models/transformer.py",
     "src/repro_torch/distributed/collectives.py",
     "src/repro_torch/kernels/ops.py",
+    "src/repro_torch/serving/graphs.py",
 )
 
-# the model methods a dispatch site calls
+# the model methods a dispatch site calls, and the graph cache's entry
+# (``DispatchGraphs.dispatch``: a captured dispatch's replay)
 DISPATCH_METHODS = {"prefill_paged", "prefill_chunk_paged",
                     "decode_step_paged", "chunk_forward", "advance_states",
-                    "copy_pages", "write_pages"}
+                    "copy_pages", "write_pages", "dispatch"}
 # the graph-capture constructions
 CAPTURE_CALLS = {"torch.compile", "torch.cuda.graph", "torch.cuda.CUDAGraph"}
 
 # (module, enclosing qualname, called descriptor)
 KNOWN_DISPATCH_SITES = {
     ("src/repro_torch/serving/backends.py",
-     "ModelBackend._flush_prefills", "self.model.prefill_paged"),
+     "ModelBackend._wave", "self.model.prefill_paged"),
     ("src/repro_torch/serving/backends.py",
-     "ModelBackend._chunked_prefill_tick", "self.model.prefill_chunk_paged"),
+     "ModelBackend._chunk", "self.model.prefill_chunk_paged"),
     ("src/repro_torch/serving/backends.py",
-     "ModelBackend._dispatch_window", "self.model.decode_step_paged"),
+     "ModelBackend._decode", "self.model.decode_step_paged"),
+    ("src/repro_torch/serving/backends.py",
+     "ModelBackend._dispatch", "self.graphs.dispatch"),
+    ("src/repro_torch/serving/graphs.py",
+     "CudaCapturer.capture", "torch.cuda.CUDAGraph"),
     ("src/repro_torch/serving/backends.py",
      "ModelBackend._advance", "self.model.advance_states"),
     ("src/repro_torch/serving/backends.py",

@@ -23,7 +23,8 @@ HLO004  collective audit — the kinds and per-device bytes the dispatch
         ``collective_bytes`` model exactly
 HLO005  dispatch-shape churn — running an entry across the tick shape grid
         sees at most the declared number of input-shape signatures (the
-        torch form of the jit cache size; a captured graph per signature)
+        torch form of the jit cache size), and a backend's graph cache
+        captures at most that many graphs over the raw batches
 HLO006  inventory registration — every dispatch call and graph-capture
         site in the serving modules is registered in
         :data:`repro_torch.analysis.inventory.KNOWN_DISPATCH_SITES`
@@ -271,3 +272,22 @@ def check_recompile_churn(fn, arg_makers, *, declared_buckets: int,
         f"{len(arg_makers)} grid shapes gave {len(sigs)} distinct input "
         f"signatures, declared bucket count is {declared_buckets} — "
         f"shape bucketing is leaking (grid: {shapes_run})")]
+
+
+def check_graph_churn(graphs, drive, raw_batches, *, declared_buckets: int,
+                      target: str = "graphs") -> list:
+    """The captured half of HLO005: ``drive(b)`` runs one dispatch of raw
+    batch ``b`` through a backend whose graph cache is ``graphs`` (a
+    :class:`~repro_torch.serving.graphs.DispatchGraphs`); over
+    ``raw_batches`` at most ``declared_buckets`` graphs may be captured."""
+    before = set(graphs.entries)
+    for b in raw_batches:
+        drive(b)
+    new = [k for k in graphs.entries if k not in before]
+    if len(new) <= declared_buckets:
+        return []
+    return [Finding(
+        "HLO005", target,
+        f"raw batches {list(raw_batches)} captured {len(new)} graphs "
+        f"({new}), declared bucket count is {declared_buckets} — a raw "
+        f"batch reaches the graph cache unbucketed")]

@@ -44,6 +44,7 @@ from repro_torch.core.latency_model import (CPU_HOST, TPU_V5E,
 from repro_torch.distributed.collectives import KVShardSpec
 from repro_torch.launch.mesh import make_kv_mesh
 from repro_torch.models.common import ArchConfig
+from repro_torch.serving.graphs import DispatchGraphs
 from repro_torch.serving.kv_pool import OutOfPages, PagedKVAllocator
 from repro_torch.serving.request import Request
 from repro_torch.serving.workload import CommitSimulator
@@ -851,6 +852,16 @@ class ModelBackend:
     (the torch form of the JAX package's donation contract):
     ``kv.k_pages.data_ptr()`` is fixed for the backend's life.
 
+    **Captured dispatches** (``graphs``; the torch form of the JAX
+    package's jitted dispatches): on a CUDA device every paged dispatch —
+    decode, chunked prefill, wave prefill — replays one CUDA graph per
+    bucketed shape (:class:`~repro_torch.serving.graphs.DispatchGraphs`),
+    captured at the bucket's first use.  ``graphs=None`` turns it on for a
+    CUDA device and off elsewhere; ``False`` runs every dispatch eagerly
+    (the eager twin a captured run is held to); a capturer object (e.g.
+    ``graphs.RerunCapturer()`` on the CPU) stands in for the card's.  The
+    counters count calls, captured or not.
+
     **Sharded pool** (``kv_shards > 1``): the page count rounds up to a
     multiple of ``kv_shards``, and the pool splits into ``kv_shards``
     blocks over the ``kv`` axis of ``kv_mesh`` (default
@@ -888,7 +899,8 @@ class ModelBackend:
                  prefill_mode: str = "chunked",
                  prefill_token_budget: int | None = None,
                  kv_shards: int = 1, prefix_cache: bool = True,
-                 host_kv_pages: int = 0, device="cuda", kv_mesh=None):
+                 host_kv_pages: int = 0, device="cuda", kv_mesh=None,
+                 graphs=None):
         if prefill_mode not in ("chunked", "wave"):
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
         self.device = torch.empty(0, device=device).device   # cuda → cuda:N
@@ -921,6 +933,7 @@ class ModelBackend:
             else self.cfg.paged_attn_impl
         if not self.paged:
             self.kv = None
+            self.graphs = None            # the slot path stays eager
             self.prefix_cache = False
             self.cache = model.init_cache(n_slots, max_len, dtype=cache_dtype,
                                           device=self.device)
@@ -964,6 +977,13 @@ class ModelBackend:
         self.prefix_hits = 0
         self.prefix_misses = 0
         self.prefix_hit_tokens = 0
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        self.graphs = None
+        if graphs is not False:
+            self.graphs = DispatchGraphs(
+                self.device, self._pool_ptrs,
+                capturer=None if graphs is True else graphs)
 
     @staticmethod
     def _bucket(n: int) -> int:
@@ -974,7 +994,7 @@ class ModelBackend:
         return b
 
     def _t(self, a, dtype=torch.int64) -> torch.Tensor:
-        """Host array → tensor on the backend's device."""
+        """Host array → tensor on the backend's device (the eager path)."""
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     # ------------------------------------------------------------------
@@ -1176,16 +1196,58 @@ class ModelBackend:
     def _pages_cache(self):
         return {"k_pages": self.kv.k_pages, "v_pages": self.kv.v_pages}
 
-    def _shard_kw(self, rids, padded: int) -> dict:
-        """A sharded dispatch's ``kv_shard`` and the rows' stripe offsets
-        ``shard_offs`` (padded rows: offset 0 — their ctx is 0, so never
-        read); nothing for an unsharded pool."""
+    def _pool_ptrs(self) -> tuple:
+        ks, vs, _ = self.kv.pool_blocks()
+        return tuple(t.data_ptr() for t in list(ks) + list(vs))
+
+    def _shard_offs(self, rids, padded: int) -> dict:
+        """A sharded dispatch's host input ``shard_offs``: the rows' stripe
+        offsets (padded rows: offset 0 — their ctx is 0, so never read);
+        nothing for an unsharded pool."""
         if self._kv_shard is None:
             return {}
         so = np.zeros(padded, np.int32)
         so[:len(rids)] = self.kv.stripe_offsets(rids)
-        return {"kv_shard": self._kv_shard,
-                "shard_offs": self._t(so, torch.int32)}
+        return {"shard_offs": so}
+
+    def _shard_args(self, t) -> dict:
+        """The sharded pool's ``kv_shard`` and ``shard_offs`` arguments of a
+        dispatch reading ``t`` (nothing for an unsharded pool)."""
+        if self._kv_shard is None:
+            return {}
+        return {"kv_shard": self._kv_shard, "shard_offs": t["shard_offs"]}
+
+    def _dispatch(self, kind: str, fn, **host) -> tuple:
+        """One paged dispatch ``fn(t)`` of ``kind`` on the host arrays
+        ``host`` (each padded to its bucket), ``t`` holding them on the
+        device by name: replayed from the graph of its bucket when
+        ``self.graphs`` is set, else run eagerly.  Returns (conf, tok) on
+        the device."""
+        if self.graphs is None:
+            return fn({k: self._t(a, None) for k, a in host.items()})
+        key = (kind, host["toks"].shape, self._impl, self.kv_shards)
+        return self.graphs.dispatch(key, fn, host)
+
+    # the three dispatches, each on its static (or eager) inputs ``t``
+    def _wave(self, t):
+        (conf, tok), _ = self.model.prefill_paged(
+            self.params, self._pages_cache(), t["toks"], t["lens"],
+            t["tables"], head_mode="sample", impl=self._impl,
+            kv_shard=self._kv_shard)
+        return conf, tok
+
+    def _chunk(self, t):
+        conf, tok, _ = self.model.prefill_chunk_paged(
+            self.params, self._pages_cache(), t["toks"], t["offs"],
+            t["valid"], t["tables"], impl=self._impl, **self._shard_args(t))
+        return conf, tok
+
+    def _decode(self, t):
+        conf, tok, _ = self.model.decode_step_paged(
+            self.params, self._pages_cache(), t["toks"], t["start"],
+            t["valid"], t["tables"], t["start"], t["n_adv"], impl=self._impl,
+            **self._shard_args(t))
+        return conf, tok
 
     def _account_device_dispatch(self, batch: int, tokens: int):
         self.device_dispatches += self.kv_shards
@@ -1213,17 +1275,15 @@ class ModelBackend:
         Bp = self._bucket(B)
         Tp = self._bucket(max(r.prompt_len for r in reqs))
         toks = np.zeros((Bp, Tp), np.int64)
-        lens = np.zeros(Bp, np.int64)
+        lens = np.zeros(Bp, np.int32)
         tables = np.zeros((Bp, self._table_width), np.int32)
         tables[:B] = self.kv.batch_tables([r.rid for r in reqs],
                                           self._table_width)
         for i, r in enumerate(reqs):
             toks[i, :r.prompt_len] = np.asarray(r.prompt_tokens)
             lens[i] = r.prompt_len
-        (conf, tok), _ = self.model.prefill_paged(
-            self.params, self._pages_cache(), self._t(toks),
-            self._t(lens, torch.int32), self._t(tables, torch.int32),
-            head_mode="sample", impl=self._impl, kv_shard=self._kv_shard)
+        conf, tok = self._dispatch("wave", self._wave, toks=toks, lens=lens,
+                                   tables=tables)
         self.prefill_dispatches += 1
         # wave prefill never reads the paged prefix (scatter only)
         self.device_dispatches += self.kv_shards
@@ -1264,10 +1324,10 @@ class ModelBackend:
             toks[i, :n] = np.asarray(req.prompt_tokens[off:off + n])
             offs[i] = off
             val[i] = n
-        conf, tok, _ = self.model.prefill_chunk_paged(
-            self.params, self._pages_cache(), self._t(toks), self._t(offs),
-            self._t(val), self._t(tables, torch.int32), impl=self._impl,
-            **self._shard_kw([req.rid for req, _, _ in plan], Bp))
+        conf, tok = self._dispatch(
+            "chunk", self._chunk, toks=toks, offs=offs, valid=val,
+            tables=tables,
+            **self._shard_offs([req.rid for req, _, _ in plan], Bp))
         self.prefill_dispatches += 1
         self._account_device_dispatch(Bp, Tp)
         conf, tok = self._to_host(conf, tok)
@@ -1343,11 +1403,9 @@ class ModelBackend:
         v[:B] = valid
         a = np.zeros(Bp, np.int64)
         a[:B] = n_adv
-        st = self._t(s)
-        conf, tok, _ = self.model.decode_step_paged(
-            self.params, self._pages_cache(), self._t(w), st, self._t(v),
-            self._t(tables, torch.int32), st, self._t(a), impl=self._impl,
-            **self._shard_kw(rids, Bp))
+        conf, tok = self._dispatch("decode", self._decode, toks=w, start=s,
+                                   valid=v, tables=tables, n_adv=a,
+                                   **self._shard_offs(rids, Bp))
         self.decode_dispatches += 1
         self._account_device_dispatch(Bp, c)
         conf, tok = self._to_host(conf, tok)
