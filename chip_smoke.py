@@ -108,17 +108,10 @@ Phases, in order (any failed check raises and the script exits non-zero):
    2048, bf16, random weights drawn on the card) on the dense-slot path: one
    ``prefill`` of a [1, 640] padded prompt and one AR ``advance_states`` at
    B 8, T 1, each against the same dispatch with the weights in fp32
-   (readings: no hand kernel runs here), both profiled with the WKV scan's
-   device time; then an AR serving run through the recurrent-slot
-   ``ModelBackend`` (8 requests, ``FixedScheduler(1)``, max_len 640): every
-   request finishes, token utilization 1.0, no non-finite logits, a
-   released slot's states are zero again, the slot cache never moves;
+   (readings: no hand kernel runs here); then phase 16 on its weights;
 11. the hybrid family: Jamba-1.5-Large at full width cut to one period (8
-   layers) and 10 experts (the card's 80 GB): a block-pinned elastic
-   serving run (8 requests, max_len 640) — block-diffusion launches = 1
-   attention layer x admissions, paged launches = 1 x (``chunk_forward`` +
-   ``advance_states`` dispatches), the slot cache never moves; then one
-   ``prefill`` of a [1, 640] padded prompt (block-diffusion kernel vs
+   layers) and 10 experts (the card's 80 GB): phase 16 on its weights;
+   then one ``prefill`` of a [1, 640] padded prompt (block-diffusion kernel vs
    plain) and one ``chunk_forward`` at B 8, c 32 with every slot at ctx 512
    (the paged kernel on the slot view vs plain), MoE routing pinned to the
    plain path's experts, held at limits their controls must break
@@ -179,7 +172,33 @@ Phases, in order (any failed check raises and the script exits non-zero):
    twin's (the twin records the logit gaps the bf16 rule reads, which a
    replay does not compute on the host).  Scout-8L and Qwen2-VL elastic
    serve captured, Qwen2-VL wave eager (its gaps are compare_runs'
-   readings); the slot-path runs (phases 10, 11, 13) are eager.
+   readings); the slot path is phase 16's, SeamlessM4T's (phase 13)
+   eager;
+16. the slot path captured (run inside phases 10 and 11, on their
+   weights): the recurrent-slot dispatches of ``ModelBackend`` replay one
+   CUDA graph per key — ``slot_prefill`` (one graph whatever the slot or
+   prompt length), ``window`` and ``advance`` (one graph a distinct T).
+   (i) On RWKV6-1.6B and Jamba-1P-10E, a captured backend and its eager
+   twin on the same host arrays: a slot prefill into slot 0 and into slot
+   5 (one graph serves both), then the AR step (RWKV6) or a window and a
+   block commit (Jamba), each twice: logits, KV rows, len and states
+   bit-equal, launches a call equal and = the model's layers; each kind's
+   wall (median of 5) on both sides, device ms, kernels and busy share on
+   both sides but the eager slot prefill (the eager side's with the scans'
+   and grouped products' device time);
+   the slot prefill graph's node count (``cuGraphGetNodes``) and capture
+   seconds.  (ii) The serving run — RWKV6 AR (8 requests,
+   ``FixedScheduler(1)``), Jamba block-pinned (8 requests, elastic), 8
+   slots of 640 — eagerly (``graphs=False``, served once: it captures
+   nothing) and then captured, served twice on one backend (cold with its
+   captures, warm): every request
+   finishes, token utilization 1.0 (AR), finite logits, launches = layers
+   x dispatches of each kind (counted at the backend's ``_dispatch``), the
+   slot cache in place, released slots zero, HLO005 in slot form, the
+   slot-mode telemetry counters the reference's zeros; each captured serve
+   commits the eager serve's tokens (sha1) with its calls and launches;
+   walls, tok/s, graphs, replays,
+   capture seconds, graph-pool bytes and ``max_memory_allocated``.
    Each model is freed before the next is drawn.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -3289,8 +3308,8 @@ def ssm_phase(model, params, seed: int) -> dict:
     """Phase 10's dispatches: one ``prefill`` of a [1, 640] padded prompt and
     one AR ``advance_states`` at B 8, T 1 (from states a batched prefill
     left), each in bf16 and again with the same weights in fp32 (readings:
-    the largest logit difference and top-1 agreement), then both profiled
-    with the WKV scan's device time."""
+    the largest logit difference and top-1 agreement).  Phase 16 (i) times
+    and profiles both through the backend, eager and captured."""
     import torch
 
     cfg = model.cfg
@@ -3344,20 +3363,8 @@ def ssm_phase(model, params, seed: int) -> dict:
             f"{res[what]['logits_max_abs_diff']:.4f} (fp32 logits std "
             f"{res[what]['logits_std_fp32']:.4f}), top-1 agrees in "
             f"{res[what]['top1_agree']:.3f} of {lb.shape[0]} rows")
-    del m32, p32, caches[torch.float32]
+    del m32, p32, caches
     torch.cuda.empty_cache()
-
-    undo = annotate_scans()
-    try:
-        for what, fn, iters, n in (("prefill", prefill, 1, 1),
-                                   ("advance_states", advance, 5, 3)):
-            row = profile_dispatch(
-                lambda impl, fn=fn: fn(model, params, torch.bfloat16).cpu(),
-                None, iters, n, ops=("wkv_scan",))
-            res[what]["profile"] = row
-            log_profile(f"ssm {what} ({cfg.name})", row, None)
-    finally:
-        undo()
     return res
 
 
@@ -3620,51 +3627,343 @@ def hybrid_phase(model, params, seed: int) -> dict:
 
 
 def slot_ptrs(cache) -> list[int]:
-    return [t.data_ptr() for st in cache.get("states", {}).values()
-            for t in st.values()] + \
-        [cache[n].data_ptr() for n in ("k", "v", "len") if n in cache]
+    from repro_torch.serving.backends import _slot_tensors
+    return [t.data_ptr() for t in _slot_tensors(cache)]
 
 
-def serve_recurrent(model, params, reqs) -> dict:
-    """One serving run of a recurrent family through the recurrent-slot
-    ``ModelBackend`` (8 slots, max_len 640, bf16): rwkv AR under
-    ``FixedScheduler(1)``, the hybrid block-pinned under the elastic
-    scheduler as ``launch/serve.py`` builds it.  The backend counts no
-    dispatches in this mode, so the run counts the model's calls itself."""
+# ---------------------------------------------------------------------------
+# the slot path captured (phase 16): the recurrent-slot dispatches as graphs
+# ---------------------------------------------------------------------------
+
+SLOT_GRAPH_SLOTS = (0, 5)                 # (i): the two admissions' slots
+SLOT_GRAPH_LENS = (PROMPT_LEN, 300)       # and their prompts
+SLOT_COMMIT_T = 5                         # (i): the hybrid block commit's T
+SLOT_PROFILED = {"slot_prefill": 1, "window": 3, "advance": 3}
+# The eager slot prefill is timed, not profiled: on an H100 80GB HBM3 (700
+# W) profiling one took 136.3 s (RWKV6-1.6B, 94,242 kernels) and 55.2 s
+# (Jamba) of the script's time limit, and its kernels are the captured
+# prefill's, which is profiled (PERF.md section 5 keeps the eager
+# readings).
+EAGER_UNPROFILED = ("slot_prefill",)
+SLOT_KINDS = ("slot_prefill", "window", "advance")
+# the nodes of the graphs captured while NODES["on"] (keep_graph and
+# libcuda's cuGraphGetNodes: the graph's own count, kernels and copies)
+NODES = {"on": False, "counts": []}
+
+
+def count_nodes():
+    """Make every ``torch.cuda.CUDAGraph`` keep its ``cudaGraph_t`` and,
+    while ``NODES["on"]``, append its node count to ``NODES["counts"]`` at
+    ``capture_end``, then instantiate it there (as a graph that does not
+    keep it does), so capture seconds still include instantiation."""
+    import ctypes
+
     import torch
 
+    cuda = ctypes.CDLL("libcuda.so.1")
+    get_nodes = cuda.cuGraphGetNodes
+    get_nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.POINTER(ctypes.c_size_t)]
+    get_nodes.restype = ctypes.c_int
+    base = torch.cuda.CUDAGraph
+
+    class Counted(base):
+        def __init__(self, keep_graph=False):
+            super().__init__(NODES["on"] or keep_graph)
+
+        def capture_end(self):
+            super().capture_end()
+            if NODES["on"]:
+                n = ctypes.c_size_t()
+                rc = get_nodes(ctypes.c_void_p(self.raw_cuda_graph()), None,
+                               ctypes.byref(n))
+                if rc != 0:
+                    raise RuntimeError(f"cuGraphGetNodes returned {rc}")
+                NODES["counts"].append(n.value)
+                self.instantiate()
+
+    torch.cuda.CUDAGraph = Counted
+
+
+def slot_counts():
+    """The counters a slot dispatch moves: paged launches, their merges,
+    block-diffusion launches, grouped products."""
+    import numpy as np
+
+    from repro_torch.kernels import block_diffusion_attn as bda
+    from repro_torch.kernels import chunked_paged_attn as cpa
+    from repro_torch.models import moe
+    return np.array([cpa.LAUNCHES, cpa.MERGE_LAUNCHES, bda.LAUNCHES,
+                     moe.GROUPED_CALLS])
+
+
+def slot_layers(model) -> tuple[int, int]:
+    """(attention layers, MoE layers on the sorted path) of a slot model."""
+    from repro_torch.models import moe
+    n_attn = model.paged_kv_dims()[0] if model.has_kv else 0
+    n_moe = sum(ffn == "moe" for _, ffn in model._positions()) \
+        * model.n_periods if moe.takes_sorted_path(model.cfg) else 0
+    return n_attn, n_moe
+
+
+def slot_graphs_phase(model, params, seed: int) -> dict:
+    """Phase 16 (i): a recurrent family's slot dispatches through a
+    captured recurrent-slot ``ModelBackend`` and its eager twin
+    (``graphs=False``), 8 slots of SLOT_LEN, bf16: a slot prefill of a
+    padded [SLOT_LEN] prompt into slot 0 (the captured side captures) and
+    into slot 5 (it replays the one graph), then the RWKV6 AR step (T 1),
+    or the hybrid's window (c = block) and a block commit (T
+    SLOT_COMMIT_T), each twice (capture, replay) on both live slots.
+    After every call: logits bit-equal, every slot tensor (KV rows, len,
+    states) bit-equal, the kernels' launches, merges and grouped products
+    a call the same on both sides and as many as the model's layers ask.
+    Then each kind's wall (host clock around the dispatch and its logits'
+    fetch, median of GRAPH_ITERS) and ``torch.profiler`` over
+    SLOT_PROFILED calls, on both sides but for EAGER_UNPROFILED (the eager
+    side's with the scans' and grouped products' device time); the slot
+    prefill's graph nodes and capture seconds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import ModelBackend
+    from repro_torch.serving.backends import _slot_tensors
+
+    cfg = model.cfg
+    ar = cfg.family == "ssm"
+    t0 = time.perf_counter()
+    captures = dict(CAPTURES)
+    sides = {side: ModelBackend(model, params, n_slots=MODEL_B,
+                                max_len=SLOT_LEN,
+                                decode_mode="ar" if ar else "elastic",
+                                cache_dtype=torch.bfloat16, device=DEVICE,
+                                graphs=side == "captured")
+             for side in ("captured", "eager")}
+    cap = sides["captured"]
+    ptrs = cap.graphs.pool_ptrs()
+    rng = np.random.default_rng(seed)
+    V, B, c = cfg.vocab_size, MODEL_B, cfg.block_size
+    n_attn, n_moe = slot_layers(model)
+    mask = np.zeros(B, bool)
+    mask[list(SLOT_GRAPH_SLOTS)] = True
+
+    def prefill(slot, n):
+        toks = np.zeros(SLOT_LEN, np.int64)
+        toks[:n] = rng.integers(4, V - 8, n)
+        return dict(toks=toks, lens=np.array([n], np.int32),
+                    slot=np.array([slot], np.int64))
+
+    cases = [(f"slot prefill [{SLOT_LEN}], length {n}, slot {slot}",
+              "slot_prefill", "_slot_prefill", prefill(slot, n), 1)
+             for slot, n in zip(SLOT_GRAPH_SLOTS, SLOT_GRAPH_LENS)]
+    if ar:
+        cases.append((f"AR step, B {B}, T 1", "advance", "_advance",
+                      dict(toks=rng.integers(4, V - 8, (B, 1)),
+                           lens=mask.astype(np.int32), mask=mask), 2))
+    else:
+        start = np.zeros(B, np.int64)
+        start[list(SLOT_GRAPH_SLOTS)] = SLOT_GRAPH_LENS
+        cases.append((f"window, B {B}, c {c}", "window", "_window",
+                      dict(toks=rng.integers(4, V - 8, (B, c)), start=start,
+                           valid=np.where(mask, c, 0)), 2))
+        cases.append((f"block commit, B {B}, T {SLOT_COMMIT_T}", "advance",
+                      "_advance",
+                      dict(toks=rng.integers(4, V - 8, (B, SLOT_COMMIT_T)),
+                           lens=(mask * SLOT_COMMIT_T).astype(np.int32),
+                           mask=mask), 2))
+
+    def call(side, kind, fn, host):
+        be = sides[side]
+        (logits,) = be._dispatch(kind, getattr(be, fn), **host)
+        return logits.cpu()
+
+    def want(kind):
+        """(paged, merges ≤ paged, block-diffusion, grouped) a call."""
+        return (0 if kind == "slot_prefill" else n_attn,
+                n_attn if kind == "slot_prefill" else 0, 3 * n_moe)
+
+    rows, launches, prefill_capture = [], np.zeros(4, np.int64), None
+    for what, kind, fn, host, n_calls in cases:
+        for _ in range(n_calls):
+            per, out = {}, {}
+            for side in sides:
+                c0, k0 = slot_counts(), dict(CAPTURES)
+                first = side == "captured" and kind == "slot_prefill" \
+                    and prefill_capture is None
+                NODES["on"] = first
+                try:
+                    out[side] = call(side, kind, fn, host)
+                finally:
+                    NODES["on"] = False
+                per[side] = slot_counts() - c0
+                if first:
+                    prefill_capture = {
+                        "nodes": NODES["counts"][-1],
+                        "capture_s": CAPTURES["s"] - k0["s"],
+                        "captures": CAPTURES["n"] - k0["n"]}
+            launches += per["captured"] + per["eager"]
+            paged, merges, bd, grouped = per["captured"]
+            raise_failed(f"phase 16 {cfg.name} {what}", [
+                (torch.equal(out["captured"], out["eager"]),
+                 "logits differ from the eager twin's"),
+                (bool(torch.isfinite(out["captured"]).all()),
+                 "non-finite logits"),
+                (all(torch.equal(a, b) for a, b in zip(
+                    _slot_tensors(cap.cache),
+                    _slot_tensors(sides["eager"].cache))),
+                 "the slot caches differ from the eager twin's"),
+                (cap.graphs.pool_ptrs() == ptrs, "the slot cache moved"),
+                ((paged, bd, grouped) == want(kind) and merges <= paged
+                 and np.array_equal(per["captured"], per["eager"]),
+                 f"launches a call {per['captured'].tolist()}, eager "
+                 f"{per['eager'].tolist()}, want paged/bd/grouped "
+                 f"{want(kind)}")])
+        rows.append({"dispatch": what, "kind": kind, "bit_equal": True,
+                     "calls": n_calls,
+                     "launches_per_call": per["captured"].tolist()})
+    graphs_by_kind = [k[0] for k in cap.graphs.entries]
+    if graphs_by_kind.count("slot_prefill") != 1 \
+            or cap.graphs.replays != sum(r["calls"] for r in rows) \
+            - len(graphs_by_kind):
+        raise AssertionError(f"phase 16 {cfg.name}: graphs "
+                             f"{list(cap.graphs.entries)}, "
+                             f"{cap.graphs.replays} replays")
+    log(f"phase 16 (i) {cfg.name}: every slot dispatch bit-equal to its "
+        f"eager twin (logits, KV rows, len, states); one slot_prefill graph "
+        f"served slots {SLOT_GRAPH_SLOTS}: {prefill_capture['nodes']} nodes,"
+        f" {prefill_capture['capture_s']:.3f} s capturing; "
+        f"{time.perf_counter() - t0:.1f} s so far")
+
+    # the eager side's profile reads the scans' (and grouped products')
+    # device time through ``annotate_scans``; a replay runs no range
+    ops = ("wkv_scan",) if ar else ("selective_scan",) + (
+        ("aten::_grouped_mm",) if n_moe else ())
+    first = {}                           # each kind's first case
+    for case, row in zip(cases, rows):
+        first.setdefault(case[1], (case, row))
+    for (what, kind, fn, host, _), row in first.values():
+        per = {}
+        for side in sides:
+            c0, t0s = slot_counts(), time.perf_counter()
+            ts = []
+            for _ in range(GRAPH_ITERS):  # warm: both sides ran it above
+                t1 = time.perf_counter()
+                call(side, kind, fn, host)
+                ts.append((time.perf_counter() - t1) * 1e3)
+            n, prof = 0, {}
+            if side == "captured" or kind not in EAGER_UNPROFILED:
+                n = SLOT_PROFILED[kind]
+                undo = annotate_scans() if side == "eager" \
+                    else (lambda: None)
+                try:
+                    prof = device_profile(
+                        lambda: call(side, kind, fn, host), None, n,
+                        ops=ops if side == "eager" else ())
+                finally:
+                    undo()
+            dl = slot_counts() - c0
+            launches += dl
+            if not np.array_equal(dl, (GRAPH_ITERS + n)
+                                  * np.array(row["launches_per_call"])):
+                raise AssertionError(f"phase 16 {cfg.name} {what} {side}: "
+                                     f"launches {dl.tolist()}")
+            per[side] = {"wall_ms": ts, "wall_ms_median":
+                         statistics.median(ts), **prof,
+                         "timing_s": time.perf_counter() - t0s}
+            log(f"phase 16 {cfg.name} {what}, {side}: wall "
+                f"{statistics.median(ts):.2f} ms (median of {GRAPH_ITERS}: "
+                f"{', '.join(f'{t:.2f}' for t in ts)})" + (
+                    f"; profiled wall {prof['wall_ms_profiled']:.2f} ms, "
+                    f"device {prof['device_ms_per_dispatch']:.2f} ms (busy "
+                    f"share {prof['device_busy_share']:.3f}) in "
+                    f"{prof['device_kernels_per_dispatch']:.0f} kernels"
+                    + "".join(f"; {op} {r['ms_per_dispatch']:.3f} ms (share "
+                              f"of device {r['share_of_device']:.3f})"
+                              for op, r in prof["ops"].items())
+                    if prof else "; not profiled")
+                + f"; {per[side]['timing_s']:.1f} s timing and profiling")
+        row.update(per)
+    raise_failed(f"phase 16 {cfg.name}",
+                 [(cap.graphs.pool_ptrs() == ptrs, "the slot cache moved")])
+    stats = graph_stats(cap, captures)
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "dispatches": rows,
+           "slot_prefill_graph": prefill_capture,
+           "kernel_launches": int(launches[0]),
+           "merge_launches": int(launches[1]),
+           "bd_kernel_launches": int(launches[2]),
+           "grouped_mm_calls": int(launches[3]), "capture": stats,
+           "wall_s": time.perf_counter() - t0}
+    log(f"phase 16 (i) {cfg.name}: capture {stats}; {res['wall_s']:.3f} s "
+        f"wall")
+    del sides, cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+SLOT_TWIN_KEYS = ("tokens_sha1", "calls", "kernel_launches",
+                  "merge_launches", "bd_kernel_launches", "grouped_mm_calls")
+
+
+def serve_recurrent(model, params, reqs, graphs: bool = True) -> dict:
+    """Phase 16 (ii): one serving run of a recurrent family through the
+    recurrent-slot ``ModelBackend`` (8 slots, max_len SLOT_LEN, bf16): rwkv
+    AR under ``FixedScheduler(1)``, the hybrid block-pinned under the
+    elastic scheduler as ``launch/serve.py`` builds it, each serve on
+    ``reqs()``.  ``graphs``: the slot dispatches replay captured graphs
+    (the backend's default on the card), served twice on the one backend —
+    cold (with its captures) and warm; or they run eagerly (the eager
+    twin), served once: it captures nothing, so a second serve would repeat
+    the first (26.851 and 26.623 s for RWKV6-1.6B on an H100 80GB HBM3 at
+    700 W).  The
+    backend counts no dispatches in this mode (the reference's
+    ``telemetry_counters``), so the run counts each kind's calls, and
+    checks its logits finite, at the backend's ``_dispatch``, which sees
+    every call, replayed or not; the launch counters are read per serve."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.analysis import rules
     from repro_torch.core.latency_model import CPU_HOST, AnalyticDeviceModel
     from repro_torch.core.scheduler import ElasticScheduler, FixedScheduler
     from repro_torch.kernels import block_diffusion_attn as bda
     from repro_torch.kernels import chunked_paged_attn as cpa
     from repro_torch.models import moe
     from repro_torch.serving import DATASETS, ModelBackend, ServingEngine
+    from repro_torch.serving import backends
 
     cfg = model.cfg
     ar = cfg.family == "ssm"
     be = ModelBackend(model, params, n_slots=MODEL_B, max_len=SLOT_LEN,
                       decode_mode="ar" if ar else "elastic",
-                      cache_dtype=torch.bfloat16, device=DEVICE)
-    sched = FixedScheduler(1) if ar else ElasticScheduler.from_analytic(
-        AnalyticDeviceModel(cfg, CPU_HOST),
-        prior_tokens_per_step=DATASETS["sharegpt"].tokens_per_step_bd32,
-        batches=(1, 2, 4, 8), ctx=128.0)
-    calls = {"prefill": 0, "chunk_forward": 0, "advance_states": 0}
-    bad = []
+                      cache_dtype=torch.bfloat16, device=DEVICE,
+                      graphs=graphs)
+    calls = dict.fromkeys(SLOT_KINDS, 0)
+    advance_T, finite = set(), {}
+    dispatch = be._dispatch
 
-    def counted(name):
-        fn = getattr(type(model), name).__get__(model)
+    def counted(kind, fn, **host):
+        calls[kind] += 1
+        if kind == "advance":
+            advance_T.add(host["toks"].shape[1])
+        out = dispatch(kind, fn, **host)
+        ok = torch.isfinite(out[0]).all()      # on the device: no sync
+        finite[kind] = ok if kind not in finite else finite[kind] & ok
+        return out
 
-        def wrapped(*a, **k):
-            calls[name] += 1
-            logits, out = fn(*a, **k)
-            if not torch.isfinite(logits).all():
-                bad.append(name)
-            return logits, out
-        return wrapped
+    be._dispatch = counted
+    # host seconds in the backend's sampler (softmax over each live row's
+    # fetched [c, V] logits): a reading of the host work between dispatches
+    sampler, sampled = backends.softmax_confidence, {"s": 0.0, "n": 0}
 
-    for name in calls:
-        setattr(model, name, counted(name))
+    def timed_sampler(logits):
+        t1 = time.perf_counter()
+        try:
+            return sampler(logits)
+        finally:
+            sampled["s"] += time.perf_counter() - t1
+            sampled["n"] += 1
+
     outs = {}
     release = be.release
 
@@ -3674,79 +3973,139 @@ def serve_recurrent(model, params, reqs) -> dict:
 
     be.release = spy
     ptrs = slot_ptrs(be.cache)
-    eng = ServingEngine(be, sched, max_batch=MODEL_B)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    cpa.LAUNCHES = cpa.MERGE_LAUNCHES = bda.LAUNCHES = 0
-    moe.GROUPED_CALLS = 0
-    t0 = time.perf_counter()
-    try:
-        rep = eng.run(list(reqs))
-        torch.cuda.synchronize()
-    finally:
-        for name in calls:
-            delattr(model, name)
-    wall = time.perf_counter() - t0
-    launches, bd_launches = cpa.LAUNCHES, bda.LAUNCHES
-    merges, grouped = cpa.MERGE_LAUNCHES, moe.GROUPED_CALLS
-
-    n_attn = model.paged_kv_dims()[0] if model.has_kv else 0
-    n_moe = sum(ffn == "moe" for _, ffn in model._positions()) \
-        * model.n_periods if moe.takes_sorted_path(cfg) else 0
-    n_dec = calls["chunk_forward"] + calls["advance_states"]
-    tokens = sum(len(v) for v in outs.values())
-    res = {"arch": cfg.name, "layers": cfg.n_layers, "mode":
-           "ar" if ar else "block_pinned", "requests": len(rep.metrics),
-           "tokens_committed": tokens, "prefill_calls": calls["prefill"],
-           "chunk_forward_calls": calls["chunk_forward"],
-           "advance_states_calls": calls["advance_states"],
-           "decode_dispatches": n_dec, "prefill_dispatches": calls["prefill"],
-           "kernel_launches": launches, "merge_launches": merges,
-           "bd_kernel_launches": bd_launches, "grouped_mm_calls": grouped,
-           "token_utilization": rep.token_utilization,
-           "wall_s": wall, "tok_per_s": tokens / wall,
-           "max_memory_allocated": torch.cuda.max_memory_allocated()}
-    log(f"serve {cfg.name} ({cfg.n_layers} layers) {res['mode']}: "
-        f"{res['requests']} requests finished, {tokens} tokens committed, "
-        f"{calls['prefill']} prefill + {calls['chunk_forward']} chunk_forward"
-        f" + {calls['advance_states']} advance_states dispatches, {launches}"
-        f" paged ({merges} with a split merge) + {bd_launches} "
-        f"block-diffusion kernel launches, {grouped} grouped products, "
-        f"token utilization {rep.token_utilization:.3f}, {wall:.3f} s wall, "
-        f"{res['tok_per_s']:.2f} committed tok/s, max_memory_allocated "
-        f"{res['max_memory_allocated']} B")
-
     leaves = [t for st in be.cache.get("states", {}).values()
               for t in st.values()]
-    checks = [
-        (len(rep.metrics) == len(reqs), "not every request finished"),
-        (all(len(outs[r.rid]) == r.max_new_tokens for r in reqs),
-         "a request committed the wrong number of tokens"),
-        (all(0 <= t < cfg.vocab_size for v in outs.values() for t in v),
-         "a committed token is outside the vocabulary"),
-        (not bad, f"non-finite logits from {sorted(set(bad))}"),
-        (calls["prefill"] == len(reqs), "prefill calls != admissions"),
-        (not ar or rep.token_utilization == 1.0,
-         f"AR token utilization {rep.token_utilization} != 1.0"),
-        (not ar or calls["chunk_forward"] == 0, "an AR run ran a window"),
-        (bd_launches == n_attn * calls["prefill"],
-         f"{bd_launches} block-diffusion launches != {n_attn} x "
-         f"{calls['prefill']} prefills"),
-        (launches == n_attn * n_dec,
-         f"{launches} paged launches != {n_attn} x {n_dec} chunk_forward + "
-         f"advance_states dispatches"),
-        (merges <= launches, f"{merges} merge launches > {launches}"),
-        (grouped == 3 * n_moe * (calls["prefill"] + n_dec),
-         f"{grouped} grouped products != 3 x {n_moe} MoE layers x "
-         f"{calls['prefill'] + n_dec} dispatches"),
+    n_attn, n_moe = slot_layers(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    serves = []
+    for which in ("cold", "warm") if graphs else ("cold",):
+        rs = reqs()
+        sched = FixedScheduler(1) if ar else ElasticScheduler.from_analytic(
+            AnalyticDeviceModel(cfg, CPU_HOST),
+            prior_tokens_per_step=DATASETS["sharegpt"].tokens_per_step_bd32,
+            batches=(1, 2, 4, 8), ctx=128.0)
+        eng = ServingEngine(be, sched, max_batch=MODEL_B)
+        outs.clear()
+        c0, captures = dict(calls), dict(CAPTURES)
+        cpa.LAUNCHES = cpa.MERGE_LAUNCHES = bda.LAUNCHES = 0
+        moe.GROUPED_CALLS = 0
+        sampled.update(s=0.0, n=0)
+        backends.softmax_confidence = timed_sampler
+        t0 = time.perf_counter()
+        try:
+            rep = eng.run(list(rs))
+            torch.cuda.synchronize()
+        finally:
+            backends.softmax_confidence = sampler
+        wall = time.perf_counter() - t0
+        tokens = [list(map(int, outs[r.rid])) for r in rs]
+        n = sum(map(len, tokens))
+        sc = {k: calls[k] - c0[k] for k in SLOT_KINDS}
+        n_dec = sc["window"] + sc["advance"]
+        sv = {"serve": which, "requests": len(rep.metrics),
+              "tokens_committed": n, "wall_s": wall, "tok_per_s": n / wall,
+              "token_utilization": rep.token_utilization, "calls": sc,
+              "kernel_launches": cpa.LAUNCHES,
+              "merge_launches": cpa.MERGE_LAUNCHES,
+              "bd_kernel_launches": bda.LAUNCHES,
+              "grouped_mm_calls": moe.GROUPED_CALLS,
+              "host_sampling_s": sampled["s"],
+              "host_samplings": sampled["n"],
+              "tokens_sha1": hashlib.sha1(json.dumps(tokens).encode())
+              .hexdigest(), "graphs": graph_stats(be, captures)}
+        serves.append(sv)
+        log(f"serve {cfg.name} ({cfg.n_layers} layers) "
+            f"{'ar' if ar else 'block_pinned'}, "
+            f"{'captured' if graphs else 'eager'}, {which}: "
+            f"{sv['requests']} requests finished, {n} tokens committed, "
+            f"calls {sc}, {sv['kernel_launches']} paged ("
+            f"{sv['merge_launches']} with a split merge) + "
+            f"{sv['bd_kernel_launches']} block-diffusion kernel launches, "
+            f"{sv['grouped_mm_calls']} grouped products, token utilization "
+            f"{rep.token_utilization:.3f}, {wall:.3f} s wall, "
+            f"{sv['tok_per_s']:.2f} committed tok/s, {sampled['s']:.3f} s "
+            f"in {sampled['n']} host samplings; graphs {sv['graphs']}; "
+            f"tokens sha1 {sv['tokens_sha1']}")
+        raise_failed(f"serve {cfg.name} {which}", [
+            (len(rep.metrics) == len(rs), "not every request finished"),
+            (all(len(t) == r.max_new_tokens for t, r in zip(tokens, rs)),
+             "a request committed the wrong number of tokens"),
+            (all(0 <= t < cfg.vocab_size for v in tokens for t in v),
+             "a committed token is outside the vocabulary"),
+            (sc["slot_prefill"] == len(rs), "slot prefills != admissions"),
+            (not ar or rep.token_utilization == 1.0,
+             f"AR token utilization {rep.token_utilization} != 1.0"),
+            (not ar or sc["window"] == 0, "an AR run ran a window"),
+            (sv["bd_kernel_launches"] == n_attn * sc["slot_prefill"],
+             f"{sv['bd_kernel_launches']} block-diffusion launches != "
+             f"{n_attn} x {sc['slot_prefill']} slot prefills"),
+            (sv["kernel_launches"] == n_attn * n_dec,
+             f"{sv['kernel_launches']} paged launches != {n_attn} x {n_dec} "
+             f"window + advance dispatches"),
+            (sv["merge_launches"] <= sv["kernel_launches"],
+             "more merge launches than paged launches"),
+            (sv["grouped_mm_calls"] == 3 * n_moe * (sc["slot_prefill"]
+                                                    + n_dec),
+             f"{sv['grouped_mm_calls']} grouped products != 3 x {n_moe} MoE "
+             f"layers x {sc['slot_prefill'] + n_dec} dispatches"),
+            (not be.cache["len"].any() and not any(t.any() for t in leaves),
+             "a released slot's len or states are not zero")])
+    res = {"arch": cfg.name, "layers": cfg.n_layers,
+           "mode": "ar" if ar else "block_pinned",
+           "path": "captured" if graphs else "eager", "serves": serves,
+           "advance_lengths": sorted(advance_T),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "graphs": graph_stats(be)}
+    for k in ("requests", "tokens_committed", "wall_s", "kernel_launches",
+              "merge_launches", "bd_kernel_launches", "grouped_mm_calls"):
+        res[k] = sum(sv[k] for sv in serves)
+    res["tok_per_s"] = res["tokens_committed"] / res["wall_s"]
+    bad = sorted(k for k, ok in finite.items() if not bool(ok))
+    churn = rules.check_slot_graph_churn(be.graphs, advance_T,
+                                         target=f"serve {cfg.name}") \
+        if graphs else []
+    log(f"serve {cfg.name} {res['path']}: {len(advance_T)} distinct advance "
+        f"lengths {sorted(advance_T)}, max_memory_allocated "
+        f"{res['max_memory_allocated']} B; graphs {res['graphs']}")
+    raise_failed(f"serve {cfg.name}", [
+        (not bad, f"non-finite logits from {bad}"),
         (slot_ptrs(be.cache) == ptrs, "the slot cache moved"),
-        (not be.cache["len"].any() and not any(t.any() for t in leaves),
-         "a released slot's len or states are not zero"),
-    ]
-    for ok, msg in checks:
-        if not ok:
-            raise AssertionError(f"serve {cfg.name}: {msg}")
+        (not churn, "; ".join(f.message for f in churn)),
+        (be.telemetry_counters() == {"decode_dispatches": 0,
+                                     "prefill_dispatches": 0,
+                                     "host_transfer_bytes": 0},
+         f"slot-mode telemetry counters {be.telemetry_counters()} are not "
+         f"the reference's zeros")])
     return res
+
+
+def serve_recurrent_twins(model, params, reqs) -> dict:
+    """Phase 16 (ii): :func:`serve_recurrent` eagerly (one serve), then
+    captured (cold and warm), each serve on ``reqs()``: every captured
+    serve must commit the eager serve's tokens (sha1) with its calls of
+    each kind, launches, merges and grouped products.  Returns the
+    captured run with the eager one under "eager"."""
+    import torch
+
+    eager = serve_recurrent(model, params, reqs, graphs=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = serve_recurrent(model, params, reqs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    (base,) = eager["serves"]
+    for sv in run["serves"]:
+        differ = [k for k in SLOT_TWIN_KEYS if sv[k] != base[k]]
+        log(f"serve {model.cfg.name} {run['mode']} {sv['serve']}: captured "
+            f"{sv['wall_s']:.3f} s against eager {base['wall_s']:.3f} s "
+            f"wall; the same {list(SLOT_TWIN_KEYS)}: {not differ}")
+        if differ:
+            raise AssertionError(f"serve {model.cfg.name} {sv['serve']}: "
+                                 f"the captured serve differs from its "
+                                 f"eager twin in {differ}")
+    run["eager"] = eager
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -4646,6 +5005,7 @@ def main() -> int:
     from repro_torch.kernels import build
 
     time_captures()
+    count_nodes()
     t0 = time.perf_counter()
     libs = build.build(build.all_sources())
     build_s = time.perf_counter() - t0
@@ -4798,7 +5158,10 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
     model, params = draw(cfg)
     ssm_res = ssm_phase(model, params, args.seed)
     torch.cuda.empty_cache()
-    runs.append(serve_recurrent(model, params, elastic_reqs(cfg)))
+    log_phase("16: RWKV6-1.6B, the slot path captured")
+    slot_res = {cfg.name: slot_graphs_phase(model, params, args.seed)}
+    runs.append(serve_recurrent_twins(model, params,
+                                      lambda: elastic_reqs(cfg)))
     del model, params
     free(cfg.name)
 
@@ -4810,8 +5173,10 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
         f"of 72 layers (one period) and {cfg.n_experts} of 16 experts: the "
         f"card's 80 GB")
     model, params = draw(cfg)
-    runs.append(serve_recurrent(model, params, elastic_reqs(cfg)))
-    torch.cuda.empty_cache()
+    log_phase("16: Jamba, the slot path captured")
+    runs.append(serve_recurrent_twins(model, params,
+                                      lambda: elastic_reqs(cfg)))
+    slot_res[cfg.name] = slot_graphs_phase(model, params, args.seed)
     hybrid_res = hybrid_phase(model, params, args.seed)
     del model, params
     free(cfg.name)
@@ -4856,6 +5221,7 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
     split_runs = split_res["runs"]
     twins = [r["eager"] for r in runs + cluster_runs + split_runs
              if "eager" in r]
+    slot_rows = list(slot_res.values())
     head = kern_rows[0]
     kernels = [{
         "name": "paged_chunk_attention",
@@ -4866,10 +5232,10 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
                         for r in runs + cluster_runs + split_runs)
         + encdec_res["kernel_launches"] + ep_res["model"]["kernel_launches"]
         + a_model["kernel_launches"] + graphs_res["kernel_launches"]
-        + sum(r["kernel_launches"] for r in twins),
+        + sum(r["kernel_launches"] for r in twins + slot_rows),
         "merge_launches": sum(r["merge_launches"]
                               for r in runs + cluster_runs + split_runs
-                              + twins)
+                              + twins + slot_rows)
         + encdec_res["merge_launches"] + ep_res["model"]["merge_launches"]
         + a_model["merge_launches"] + graphs_res["merge_launches"],
         "launches_by_site": {"serving runs": sum(r["kernel_launches"]
@@ -4886,7 +5252,9 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
                                  a_model["kernel_launches"],
                              "captured dispatches (phase 15)":
                                  graphs_res["kernel_launches"],
-                             "eager twins (phase 15)": sum(
+                             "captured slot dispatches (phase 16 (i))": sum(
+                                 r["kernel_launches"] for r in slot_rows),
+                             "eager twins (phases 15, 16)": sum(
                                  r["kernel_launches"] for r in twins)},
         "max_abs_err": max(r["max_abs_err"] for r in kern_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -4901,7 +5269,8 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
         "source": "src/repro_torch/kernels/csrc/block_diffusion_attn.cu",
         "replaces": "src/repro/kernels/block_diffusion_attn.py:86",
         "launches": sum(r["bd_kernel_launches"]
-                        for r in runs + cluster_runs + split_runs + twins)
+                        for r in runs + cluster_runs + split_runs + twins
+                        + slot_rows)
         + encdec_res["bd_kernel_launches"] + a_model["bd_kernel_launches"]
         + graphs_res["bd_kernel_launches"],
         "launches_by_site": {"serving runs": sum(r["bd_kernel_launches"]
@@ -4916,7 +5285,9 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
                                  a_model["bd_kernel_launches"],
                              "captured dispatches (phase 15)":
                                  graphs_res["bd_kernel_launches"],
-                             "eager twins (phase 15)": sum(
+                             "captured slot dispatches (phase 16 (i))": sum(
+                                 r["bd_kernel_launches"] for r in slot_rows),
+                             "eager twins (phases 15, 16)": sum(
                                  r["bd_kernel_launches"] for r in twins)},
         "max_abs_err": max(r["max_abs_err"] for r in bd_rows),
         "ms": bd_rows[0]["ms"], "plain_ms": bd_rows[0]["plain_ms"],
@@ -4940,7 +5311,7 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
              "wave_vs_chunked": wave_vs_chunked, "train": train_res,
              "launcher": launcher_res, "encdec_train": enc_train_res,
              "encdec": encdec_res, "analysis": analysis_res,
-             "graphs": graphs_res}, indent=1))
+             "graphs": graphs_res, "slot_graphs": slot_res}, indent=1))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -114,9 +114,10 @@ def audit_graphs(kv_shards: int, device, verbose: bool = False,
     place; on the card no growth of ``memory_allocated``) and HLO003
     (``8·B·c`` bytes out of a decode, ``8·B`` out of a prefill; on the
     card no host sync).  The card captures CUDA graphs; elsewhere the
-    stand-in capturer (``RerunCapturer``) replays.  ``stats``, when given,
-    receives each replay's syncs and bytes grown and the graphs
-    captured."""
+    stand-in capturer (``RerunCapturer``) replays.  At one shard it also
+    audits a recurrent-slot backend (:func:`audit_slot_graphs`).
+    ``stats``, when given, receives each replay's syncs and bytes grown and
+    the graphs captured (the slot backend's under ``"slot"``)."""
     import numpy as np
     import torch
 
@@ -196,6 +197,116 @@ def audit_graphs(kv_shards: int, device, verbose: bool = False,
     if verbose:
         print(f"[pass1] {target}: {len(be.graphs.entries)} graphs, "
               f"replays {readings}", file=sys.stderr)
+    if S == 1:                          # the slot path has no sharded pool
+        slot = {} if stats is not None else None
+        findings += audit_slot_graphs(dev, verbose=verbose, stats=slot)
+        if stats is not None:
+            stats["slot"] = slot
+    return findings
+
+
+# the advance lengths the slot audit drives (T 2 twice: its second call
+# replays)
+SLOT_ADVANCE_T = (1, 2, 3, 2)
+
+
+def audit_slot_graphs(device, verbose: bool = False, stats=None) -> list:
+    """The captured slot dispatches of a recurrent-slot ``ModelBackend`` on
+    the hybrid audit model: HLO005 in slot form over two admissions into
+    two slots with two prompt lengths, two windows and advances at
+    ``SLOT_ADVANCE_T`` (at most 2 graphs + one a distinct advance length:
+    one ``slot_prefill``, one ``window``), then one more replay of each
+    kind held to HLO001 (the slot cache in place; on the card no growth of
+    ``memory_allocated``) and, on the card, to HLO003's no-sync half.
+    ``stats``, when given, receives each replay's syncs and bytes grown and
+    the graphs by kind."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import rules
+    from repro_torch.analysis.inventory import AUDIT_SLOT_ARCH
+    from repro_torch.models import ArchConfig, build_model
+    from repro_torch.serving import ModelBackend, Request
+    from repro_torch.serving.backends import _slot_tensors
+    from repro_torch.serving.graphs import RerunCapturer
+
+    dev = torch.empty(0, device=device).device
+    cuda = dev.type == "cuda"
+    cfg = ArchConfig(**AUDIT_SLOT_ARCH)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+    be = ModelBackend(model, params, n_slots=4, max_len=32, device=dev,
+                      graphs=True if cuda else RerunCapturer())
+    target = "graphs@slot"
+    c, V, B = cfg.block_size, cfg.vocab_size, be.n_slots
+    rng = np.random.default_rng(0)
+    for rid, n in enumerate((5, 11)):
+        be.admit(Request(rid=rid, arrival_time=0.0, prompt_len=n,
+                         max_new_tokens=8,
+                         prompt_tokens=rng.integers(4, V, n).tolist()))
+    mask = np.zeros(B, bool)
+    mask[list(be._slot_of.values())] = True
+
+    def window():
+        start = np.where(mask, be.cache["len"].cpu().numpy(), 0)
+        return dict(toks=rng.integers(4, V, (B, c)), start=start,
+                    valid=np.where(mask, c, 0))
+
+    def advance(T):
+        return dict(toks=rng.integers(4, V, (B, T)),
+                    lens=np.where(mask, T, 0).astype(np.int32), mask=mask)
+
+    # the audited admission re-prefills the second request's slot with
+    # another length: a replay, even were the key to hold the slot
+    kinds = {"slot_prefill": (be._slot_prefill, lambda: dict(
+                 toks=np.zeros(be.max_len, np.int64),
+                 lens=np.array([7], np.int32),
+                 slot=np.array([be._slot_of[1]], np.int64))),
+             "window": (be._window, window),
+             "advance": (be._advance, lambda: advance(2))}
+    be._dispatch("window", be._window, **window())
+    be._dispatch("window", be._window, **window())
+    for T in SLOT_ADVANCE_T:
+        be._dispatch("advance", be._advance, **advance(T))
+    n = len(be.graphs.entries)
+    findings = rules.check_slot_graph_churn(be.graphs, SLOT_ADVANCE_T,
+                                            target=target)
+    readings = {}
+    for kind, (fn, host) in kinds.items():
+        args = host()
+        ptrs = rules.pool_ptrs(_slot_tensors(be.cache))
+        if cuda:
+            torch.cuda.synchronize(dev)
+            before = torch.cuda.memory_allocated(dev)
+        syncs, _ = rules.count_syncs(
+            lambda: be._dispatch(kind, fn, **args), dev)
+        grown = None
+        if cuda:
+            torch.cuda.synchronize(dev)
+            grown = torch.cuda.memory_allocated(dev) - before
+        if len(be.graphs.entries) != n:
+            raise RuntimeError(f"{target} {kind}: the audited call captured "
+                               f"a graph instead of replaying one")
+        what = f"{target}:{kind}"
+        findings += rules.check_pool_donation(_slot_tensors(be.cache), ptrs,
+                                              target=what, grown_bytes=grown)
+        # HLO003's byte bound does not apply: a slot dispatch returns its
+        # [n_slots, T, V] fp32 logits for the host to sample, as the
+        # reference does (it counts no host bytes in this mode); only the
+        # no-sync half holds
+        findings += rules.check_host_budget([], budget_bytes=0, syncs=syncs,
+                                            target=what)
+        readings[kind] = {"syncs": syncs, "grown_bytes": grown}
+    if stats is not None:
+        graphs = {}
+        for key in be.graphs.entries:
+            graphs[key[0]] = graphs.get(key[0], 0) + 1
+        stats.update(replays=readings, graphs=graphs,
+                     replayed=be.graphs.replays)
+    if verbose:
+        print(f"[pass1] {target}: {n} graphs, replays {readings}",
+              file=sys.stderr)
     return findings
 
 

@@ -36,6 +36,10 @@ from repro_torch.analysis.findings import Finding
 AUDIT_ARCH = dict(name="audit", family="dense", n_layers=2, d_model=64,
                   n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=307,
                   block_size=8, confidence_threshold=0.6)
+# the slot backend's audit model: the hybrid family (Mamba, attention on
+# the slot view, block-pinned diffusion) at the audit's widths and vocab
+AUDIT_SLOT_ARCH = dict(AUDIT_ARCH, name="audit_slot", family="hybrid",
+                       n_layers=4, attn_period=4, attn_offset=1)
 AUDIT_B = 2          # batch rows in the audited dispatch
 AUDIT_C = 4          # decode window (chunk) width
 AUDIT_T = 8          # prefill token width
@@ -233,8 +237,9 @@ SCANNED_MODULES = (
 # the model methods a dispatch site calls, and the graph cache's entry
 # (``DispatchGraphs.dispatch``: a captured dispatch's replay)
 DISPATCH_METHODS = {"prefill_paged", "prefill_chunk_paged",
-                    "decode_step_paged", "chunk_forward", "advance_states",
-                    "copy_pages", "write_pages", "dispatch"}
+                    "decode_step_paged", "prefill_slot", "chunk_forward",
+                    "advance_states", "copy_pages", "write_pages",
+                    "dispatch"}
 # the graph-capture constructions
 CAPTURE_CALLS = {"torch.compile", "torch.cuda.graph", "torch.cuda.CUDAGraph"}
 
@@ -251,9 +256,11 @@ KNOWN_DISPATCH_SITES = {
     ("src/repro_torch/serving/graphs.py",
      "CudaCapturer.capture", "torch.cuda.CUDAGraph"),
     ("src/repro_torch/serving/backends.py",
-     "ModelBackend._advance", "self.model.advance_states"),
+     "ModelBackend._slot_prefill", "self.model.prefill_slot"),
     ("src/repro_torch/serving/backends.py",
-     "ModelBackend._step_slots", "self.model.chunk_forward"),
+     "ModelBackend._window", "self.model.chunk_forward"),
+    ("src/repro_torch/serving/backends.py",
+     "ModelBackend._advance", "self.model.advance_states"),
     ("src/repro_torch/serving/kv_pool.py",
      "PagedKVAllocator._device_copy", "copy_pages"),
     ("src/repro_torch/serving/kv_pool.py",

@@ -24,7 +24,8 @@ HLO004  collective audit — the kinds and per-device bytes the dispatch
 HLO005  dispatch-shape churn — running an entry across the tick shape grid
         sees at most the declared number of input-shape signatures (the
         torch form of the jit cache size), and a backend's graph cache
-        captures at most that many graphs over the raw batches
+        captures at most that many graphs over the raw batches (a slot
+        backend's: 2 + one a distinct advance length)
 HLO006  inventory registration — every dispatch call and graph-capture
         site in the serving modules is registered in
         :data:`repro_torch.analysis.inventory.KNOWN_DISPATCH_SITES`
@@ -291,3 +292,21 @@ def check_graph_churn(graphs, drive, raw_batches, *, declared_buckets: int,
         f"raw batches {list(raw_batches)} captured {len(new)} graphs "
         f"({new}), declared bucket count is {declared_buckets} — a raw "
         f"batch reaches the graph cache unbucketed")]
+
+
+def check_slot_graph_churn(graphs, advance_lengths, *,
+                           target: str = "graphs@slot") -> list:
+    """HLO005 in slot form: a recurrent-slot backend's graph cache
+    (``graphs``) holds at most one ``slot_prefill`` graph (slot, length and
+    the padded prompt are static inputs), one ``window`` graph and one
+    ``advance`` graph a distinct T of ``advance_lengths`` (the lengths its
+    advances ran at: T is never padded)."""
+    allowed = 2 + len(set(advance_lengths))
+    n = len(graphs.entries)
+    if n <= allowed:
+        return []
+    return [Finding(
+        "HLO005", target,
+        f"the slot dispatches captured {n} graphs ({list(graphs.entries)}), "
+        f"more than 2 + the {allowed - 2} distinct advance lengths — a slot "
+        f"dispatch's key holds more than its shape")]

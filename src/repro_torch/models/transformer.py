@@ -653,6 +653,39 @@ class TransformerLM:
             new_cache["states"] = states
         return logits, new_cache
 
+    def prefill_slot(self, params, cache, tokens, length, slot, *,
+                     impl: str = "kernel"):
+        """Admit one prompt into row ``slot`` of the slot cache: the
+        reference's recurrent-slot ``_prefill_impl`` (``jnp.take`` of the
+        slot, then ``.at[:, slot].set``).  tokens [T] (the prompt padded
+        to the cache's ``max_len``: the states run over the padding, as in
+        the reference), length [1] int32, slot [1] int64 — all device
+        tensors, so one captured graph serves every slot and prompt length.
+        :meth:`prefill` runs on a batch-1 scratch sub-cache (it rewrites
+        every KV row, ``len`` and state), whose rows ``index_copy_`` then
+        writes into the cache in place.  Returns (the last valid position's
+        logits [V] fp32, cache)."""
+        sub = {"len": cache["len"].new_zeros(1)}
+        for name in ("k", "v"):
+            if name in cache:
+                t = cache[name]
+                sub[name] = t.new_zeros(t.shape[:1] + (1,) + t.shape[2:])
+        if "states" in cache:
+            sub["states"] = {
+                key: {name: t.new_zeros(t.shape[:1] + (1,) + t.shape[2:])
+                      for name, t in st.items()}
+                for key, st in cache["states"].items()}
+        logits, _ = self.prefill(params, tokens[None], length, sub,
+                                 head_mode="last", impl=impl)
+        for name in ("k", "v"):
+            if name in cache:
+                cache[name].index_copy_(1, slot, sub[name])
+        for key, st in cache.get("states", {}).items():
+            for name, t in st.items():
+                t.index_copy_(1, slot, sub["states"][key][name])
+        cache["len"].index_copy_(0, slot, sub["len"])
+        return logits[0, 0], cache
+
     def chunk_forward(self, params, cache, win_tokens, win_start, win_valid,
                       mm_embeds=None, mm_mask=None, *, impl: str = "kernel"):
         """Diffusion-window forward against the slot cache and states.

@@ -50,6 +50,14 @@ from repro_torch.serving.request import Request
 from repro_torch.serving.workload import CommitSimulator
 
 
+def _slot_tensors(cache) -> list:
+    """The slot cache's tensors: every recurrent state, then ``k``, ``v``
+    and ``len`` where present."""
+    return [t for st in cache.get("states", {}).values()
+            for t in st.values()] + \
+        [cache[n] for n in ("k", "v", "len") if n in cache]
+
+
 @dataclass
 class StepInfo:
     n_committed: int
@@ -856,7 +864,8 @@ class ModelBackend:
     package's jitted dispatches): on a CUDA device every paged dispatch —
     decode, chunked prefill, wave prefill — replays one CUDA graph per
     bucketed shape (:class:`~repro_torch.serving.graphs.DispatchGraphs`),
-    captured at the bucket's first use.  ``graphs=None`` turns it on for a
+    captured at the bucket's first use; so does every slot dispatch (see
+    below).  ``graphs=None`` turns it on for a
     CUDA device and off elsewhere; ``False`` runs every dispatch eagerly
     (the eager twin a captured run is held to); a capturer object (e.g.
     ``graphs.RerunCapturer()`` on the CPU) stands in for the card's.  The
@@ -884,11 +893,20 @@ class ModelBackend:
     T = 1, the hybrid block-pinned with one ``chunk_forward`` at ``c =
     block_size`` a tick and one ``advance_states`` a block commit.  Every
     dispatch runs all ``n_slots`` rows; a masked merge keeps the states of
-    the rows that did not take part.  The dispatches pull ``[n_slots, c,
-    V]`` fp32 logits to the host, which samples them; like the reference,
-    this mode counts no dispatches and no host bytes.  The pool's options
-    (pages, prefill mode and budget, prefix cache, host tier, shards and
-    mesh) are accepted and unused.
+    the rows that did not take part.  A window and an AR step pull their
+    ``[n_slots, c, V]`` fp32 logits to the host, which samples them (a
+    block commit's logits are never fetched, as in the reference); like
+    the reference, this mode counts no dispatches and no host bytes.  The
+    pool's options (pages, prefill mode and budget, prefix cache, host
+    tier, shards and mesh) are accepted and unused.  Captured, the slot
+    dispatches are the reference's four jits: ``slot_prefill`` (one graph,
+    keyed ``(max_len,)``: slot, length and the padded prompt are static
+    inputs), ``window`` (``(n_slots, block_size)``) and ``advance`` with
+    the masked merge inside (``(n_slots, T)``; T is never padded, since the
+    scans would run the states over the padding, so one graph a distinct
+    T, as the reference retraces per T).  A replay reads the slot cache
+    afresh (``_release_slot`` and ``crash_reset`` write it in place), and
+    raises if it moved.
     """
 
     def __init__(self, model, params, n_slots: int = 8, max_len: int = 512,
@@ -933,12 +951,12 @@ class ModelBackend:
             else self.cfg.paged_attn_impl
         if not self.paged:
             self.kv = None
-            self.graphs = None            # the slot path stays eager
             self.prefix_cache = False
             self.cache = model.init_cache(n_slots, max_len, dtype=cache_dtype,
                                           device=self.device)
             self._slot_of: dict[int, int] = {}
             self._free_slots = list(range(n_slots - 1, -1, -1))
+            self.graphs = self._graph_cache(graphs)
             return
 
         ps = page_size if page_size is not None else self.cfg.kv_page_size
@@ -977,13 +995,17 @@ class ModelBackend:
         self.prefix_hits = 0
         self.prefix_misses = 0
         self.prefix_hit_tokens = 0
+        self.graphs = self._graph_cache(graphs)
+
+    def _graph_cache(self, graphs):
+        """The backend's ``DispatchGraphs`` (None: every dispatch eager);
+        ``graphs`` as the constructor takes it."""
         if graphs is None:
             graphs = self.device.type == "cuda"
-        self.graphs = None
-        if graphs is not False:
-            self.graphs = DispatchGraphs(
-                self.device, self._pool_ptrs,
-                capturer=None if graphs is True else graphs)
+        if graphs is False:
+            return None
+        return DispatchGraphs(self.device, self._pool_ptrs,
+                              capturer=None if graphs is True else graphs)
 
     @staticmethod
     def _bucket(n: int) -> int:
@@ -992,10 +1014,6 @@ class ModelBackend:
         while b < n:
             b *= 2
         return b
-
-    def _t(self, a, dtype=torch.int64) -> torch.Tensor:
-        """Host array → tensor on the backend's device (the eager path)."""
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     # ------------------------------------------------------------------
     def _prefix_lookup(self, req: Request):
@@ -1197,6 +1215,10 @@ class ModelBackend:
         return {"k_pages": self.kv.k_pages, "v_pages": self.kv.v_pages}
 
     def _pool_ptrs(self) -> tuple:
+        """The ``data_ptr``\\ s of what every dispatch writes in place: the
+        page pool's blocks, or the slot cache's tensors."""
+        if not self.paged:
+            return tuple(t.data_ptr() for t in _slot_tensors(self.cache))
         ks, vs, _ = self.kv.pool_blocks()
         return tuple(t.data_ptr() for t in list(ks) + list(vs))
 
@@ -1218,13 +1240,14 @@ class ModelBackend:
         return {"kv_shard": self._kv_shard, "shard_offs": t["shard_offs"]}
 
     def _dispatch(self, kind: str, fn, **host) -> tuple:
-        """One paged dispatch ``fn(t)`` of ``kind`` on the host arrays
-        ``host`` (each padded to its bucket), ``t`` holding them on the
-        device by name: replayed from the graph of its bucket when
-        ``self.graphs`` is set, else run eagerly.  Returns (conf, tok) on
-        the device."""
+        """One dispatch ``fn(t)`` of ``kind`` on the host arrays ``host``
+        (each padded to its bucket), ``t`` holding them on the device by
+        name: replayed from the graph of its key when ``self.graphs`` is
+        set, else run eagerly.  Returns ``fn``'s outputs on the device: a
+        paged dispatch's (conf, tok), a slot dispatch's (logits,)."""
         if self.graphs is None:
-            return fn({k: self._t(a, None) for k, a in host.items()})
+            return fn({k: torch.as_tensor(a, device=self.device)
+                       for k, a in host.items()})
         key = (kind, host["toks"].shape, self._impl, self.kv_shards)
         return self.graphs.dispatch(key, fn, host)
 
@@ -1507,32 +1530,55 @@ class ModelBackend:
         return 0.0, infos
 
     # -- recurrent-slot mode -------------------------------------------------
+    # the three slot dispatches, each on its static (or eager) inputs ``t``
+    def _slot_prefill(self, t):
+        logits, _ = self.model.prefill_slot(
+            self.params, self.cache, t["toks"], t["lens"], t["slot"],
+            impl=self._impl)
+        return (logits,)
+
+    def _window(self, t):
+        logits, _ = self.model.chunk_forward(
+            self.params, self.cache, t["toks"], t["start"], t["valid"],
+            impl=self._impl)
+        return (logits,)
+
+    def _advance(self, t):
+        """``advance_states`` and the reference's ``_merge``: the new states
+        land only in the rows of ``t["mask"]`` (in place)."""
+        logits, new = self.model.advance_states(
+            self.params, self.cache, t["toks"], t["lens"], impl=self._impl)
+        m = t["mask"]
+        for key, st in self.cache.get("states", {}).items():
+            for name, old in st.items():
+                keep = m.view((1, -1) + (1,) * (old.dim() - 2))
+                old.copy_(torch.where(keep, new["states"][key][name], old))
+        return (logits,)
+
+    @staticmethod
+    def _fetch(logits) -> np.ndarray:
+        """A slot dispatch's logits on the host, fetched only where the
+        caller samples them (an AR step's, a window's, an AR admission's)."""
+        return logits.cpu().numpy()
+
     def _admit_slot(self, req: Request):
         """Prefill one request into a free slot, its prompt padded with
-        zeros to ``max_len`` (the reference's admission, padding and all).
-        The slot's KV, ``len`` and states are written through views of the
-        slot cache; an AR request commits its first token from the last
-        prompt position's logits, sampled on the host."""
+        zeros to ``max_len`` (the reference's admission, padding and all):
+        one ``slot_prefill`` dispatch whatever the slot or prompt length.
+        An AR request commits its first token from the last prompt
+        position's logits, sampled on the host."""
         slot = self._free_slots.pop()
         self._slot_of[req.rid] = slot
         toks = np.zeros(self.max_len, np.int64)
         pt = np.asarray(req.prompt_tokens, np.int64)
         toks[:len(pt)] = pt
-        sl = slice(slot, slot + 1)
-        sub = {"len": self.cache["len"][sl]}
-        for name in ("k", "v"):
-            if name in self.cache:
-                sub[name] = self.cache[name][:, sl]
-        if "states" in self.cache:
-            sub["states"] = {key: {name: t[:, sl] for name, t in st.items()}
-                             for key, st in self.cache["states"].items()}
-        logits, _ = self.model.prefill(
-            self.params, self._t(toks)[None],
-            self._t([req.prompt_len], torch.int32), sub, head_mode="last",
-            impl=self._impl)
+        (logits,) = self._dispatch(
+            "slot_prefill", self._slot_prefill, toks=toks,
+            lens=np.array([req.prompt_len], np.int32),
+            slot=np.array([slot], np.int64))
         st = self._states[req.rid]
         if isinstance(st, ARState):
-            _, tok = softmax_confidence(logits[0, 0].cpu().numpy())
+            _, tok = softmax_confidence(self._fetch(logits))
             st.commit(int(tok))
 
     def _release_slot(self, rid: int):
@@ -1546,26 +1592,12 @@ class ModelBackend:
                 t[:, slot] = 0
         self._free_slots.append(slot)
 
-    def _advance(self, toks, lens, mask):
-        """One ``advance_states`` dispatch over every slot; the new states
-        land only in the rows of ``mask`` (in place).  Returns the logits
-        [n_slots, T, V] fp32 on the host."""
-        logits, new = self.model.advance_states(
-            self.params, self.cache, self._t(toks), self._t(lens, torch.int32),
-            impl=self._impl)
-        m = self._t(mask, torch.bool)
-        for key, st in self.cache.get("states", {}).items():
-            for name, old in st.items():
-                keep = m.view((1, -1) + (1,) * (old.dim() - 2))
-                old.copy_(torch.where(keep, new["states"][key][name], old))
-        return logits.cpu().numpy()
-
     def _step_ar_recurrent(self, ar_rids, infos):
         """AR decode for the recurrent-slot families: the last committed
         token of every live slot through ``advance_states`` (T = 1)."""
         B = self.n_slots
         toks = np.full((B, 1), self.cfg.mask_token_id, np.int64)
-        lens = np.zeros(B, np.int64)
+        lens = np.zeros(B, np.int32)
         mask = np.zeros(B, bool)
         for rid in ar_rids:
             st = self._states[rid]
@@ -1574,7 +1606,9 @@ class ModelBackend:
                 self._req[rid].prompt_tokens[-1]
             lens[slot] = 1
             mask[slot] = True
-        logits = self._advance(toks, lens, mask)
+        (logits,) = self._dispatch("advance", self._advance, toks=toks,
+                                   lens=lens, mask=mask)
+        logits = self._fetch(logits)
         for rid in ar_rids:
             st = self._states[rid]
             _, tok = softmax_confidence(logits[self._slot_of[rid], 0])
@@ -1607,10 +1641,11 @@ class ModelBackend:
             start[slot] = s
             valid[slot] = v
             meta[rid] = (cai, v)
-        logits, _ = self.model.chunk_forward(
-            self.params, self.cache, self._t(win), self._t(start),
-            self._t(valid), impl=self._impl)
-        logits = logits.cpu().numpy()
+        # the window's logits reach the host before a block commit replays
+        # (graphs.py: one memory pool a backend)
+        (logits,) = self._dispatch("window", self._window, toks=win,
+                                   start=start, valid=valid)
+        logits = self._fetch(logits)
 
         block_commits = []
         for rid in diff_rids:
@@ -1628,11 +1663,13 @@ class ModelBackend:
             st = self._states[rid]
             rel0 = st.frozen
             toks = np.full((B, n_adv), self.cfg.mask_token_id, np.int64)
-            lens = np.zeros(B, np.int64)
+            lens = np.zeros(B, np.int32)
             mask = np.zeros(B, bool)
             toks[slot] = st.committed[rel0:rel0 + n_adv]
             lens[slot] = n_adv
             mask[slot] = True
-            self._advance(toks, lens, mask)
+            # T = n_adv unpadded; the logits are never fetched
+            self._dispatch("advance", self._advance, toks=toks, lens=lens,
+                           mask=mask)
             st.advance(n_adv)
         return infos

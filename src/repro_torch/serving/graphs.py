@@ -1,7 +1,8 @@
-"""Captured paged dispatches: the torch form of the JAX package's three
-donated ``jax.jit``s (``_prefill_paged``, ``_prefill_chunk`` and
-``_decode_paged`` of its ``serving/backends.py``), one CUDA graph per input
-bucket.
+"""Captured dispatches: the torch form of the JAX package's jitted
+dispatches in its ``serving/backends.py`` — the three donated paged ones
+(``_prefill_paged``, ``_prefill_chunk``, ``_decode_paged``) and the four of
+the recurrent-slot mode (``_prefill``, ``_chunk_fwd``, ``_advance`` with
+``_merge``) — one CUDA graph per input bucket.
 
 :class:`DispatchGraphs` is the compile cache.  Its key is the dispatch
 kind, the bucketed shape and everything else that selects the traced code
@@ -27,11 +28,16 @@ Invariants:
 * All graphs of one cache share one memory pool (``graph_pool_handle``).
   A graph captured later may place its live outputs where an earlier
   graph keeps its intermediates, so replaying the earlier graph can
-  overwrite them.  That is safe only because the caller copies each
-  replay's outputs to the host (``ModelBackend._to_host``) before any
-  other graph of the cache replays.
-* The pool (``pool_ptrs()``) must be where it was at capture: a replay
-  that finds it moved raises.  A capture that fails raises too: there is
+  overwrite them.  That is safe only because the caller is done with each
+  replay's outputs before any other graph of the cache replays: the paged
+  path copies every replay's conf/tok to the host
+  (``ModelBackend._to_host``); the slot path fetches an AR step's and an
+  admission's logits at once, and ``ModelBackend._step_slots`` fetches a
+  window's logits before any block commit replays (a block commit's
+  logits are never read).
+* What the dispatches write in place (``pool_ptrs()``: the page pool's
+  blocks, or the slot cache's tensors) must be where it was at capture: a
+  replay that finds it moved raises.  A capture that fails raises too: there is
   no fall-back to the eager path, and the capture error mode stays at
   PyTorch's default (``"global"``).
 * The hand kernels' wrappers, the MoE grouped product and the collective
@@ -184,7 +190,8 @@ class DispatchGraphs:
 
     def dispatch(self, key, fn, host: dict) -> tuple:
         """Run the dispatch of ``key`` on the host arrays ``host`` (name →
-        numpy array at the key's shape): ``fn(t)``, with ``t`` the static
+        numpy array at the key's shape: ints, or a bool mask): ``fn(t)``,
+        with ``t`` the static
         inputs by name, returns its output tensors.  Returns those outputs,
         on the device."""
         e = self.entries.get(key)
@@ -192,7 +199,7 @@ class DispatchGraphs:
             return self._first(key, fn, host)
         ptrs = self.pool_ptrs()
         if ptrs != e.ptrs:
-            raise RuntimeError(f"graph {key}: the page pool moved since "
+            raise RuntimeError(f"graph {key}: the pool moved since "
                                f"capture ({e.ptrs} → {ptrs}); a replay "
                                f"would write the old storage")
         self._load(e.static, host)
