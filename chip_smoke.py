@@ -125,7 +125,8 @@ Phases, in order (any failed check raises and the script exits non-zero):
    training route's forward against ``apply(impl="kernel")`` at a limit
    its x1.03 control must break, 10 steps (the loss falls; no hand kernel
    launches), the restart drill (checkpoint at step 5, failure at 7,
-   resume: the final loss matches), one step profiled; (b) ``python -m
+   resume: the final loss matches; both replay the captured step), one
+   step profiled; (b) ``python -m
    repro_torch.launch.train`` on smollm-135m at full width and depth in a
    subprocess (20 steps, the loss falls); (c) 2 steps of ``encdec_loss`` on
    SeamlessM4T-large-v2 at full width and depth (finite, every leaf's
@@ -198,7 +199,26 @@ Phases, in order (any failed check raises and the script exits non-zero):
    slot-mode telemetry counters the reference's zeros; each captured serve
    commits the eager serve's tokens (sha1) with its calls and launches;
    walls, tok/s, graphs, replays,
-   capture seconds, graph-pool bytes and ``max_memory_allocated``.
+   capture seconds, graph-pool bytes and ``max_memory_allocated``;
+17. the JAX package's last jits captured: the page pool's COW copies and
+   swap-ins replay from the owning backend's graph cache (their serving
+   use runs inside phases 7 and 7b: the prefix cache's copies, the
+   migration drill's swap-in), and ``Trainer`` replays its whole step as
+   one CUDA graph (phase 12's 10-step run and restart drill now run
+   captured).  (ii) (run after phase 15, on SDAR-8B's weights) the
+   full-width pool (36 layers, KVH 8, hd 128, page 16, bf16) of a
+   captured backend and of an eager twin, filled with the same seeded
+   pages: COW copies and swap-ins of 1, 3, 8 and 33 pages, the pools
+   bit-equal after every one and in place, one graph a kind and pow-2
+   count, each kind's wall a call on both sides (median of 25); (i) (run
+   after phase 12) SDAR-8B-4L trained 10 steps by an eager twin and by a
+   captured ``Trainer`` from the same seed: per-step losses equal, the
+   params and moments after 3 steps bit-equal (else held to a second
+   eager run's floor, printed), the live tensors in place,
+   ``memory_allocated`` flat over the replays, no host sync in a replay,
+   the step walls (median of steps 3-10) on both sides, one more step of
+   each profiled, the graph's node count, capture seconds and pool
+   bytes; phase 12's captured restart drill read back.
    Each model is freed before the next is drawn.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -3632,6 +3652,283 @@ def slot_ptrs(cache) -> list[int]:
 
 
 # ---------------------------------------------------------------------------
+# the reference's last jits captured (phase 17): the pool's page moves and
+# the train step
+# ---------------------------------------------------------------------------
+
+POOL_PAGES, POOL_HOST = 128, 64    # (ii): pool and host-tier pages a side
+POOL_N = (1, 3, 8, 33)             # pages a COW copy and a swap-in move
+POOL_ITERS = 25
+
+
+def pool_graphs_phase(model, params, seed: int) -> dict:
+    """Phase 17 (ii): SDAR-8B's full-width pool (36 attention layers, KVH
+    8, hd 128, page 16, bf16) in a captured ``ModelBackend`` and an eager
+    twin, each of POOL_PAGES pages with a host tier of POOL_HOST, filled
+    with the same seeded pages: a COW copy of n pages then a swap-in of n
+    pages for each n of POOL_N, on both sides — the first captures, the
+    second replays — the pools bit-equal after every operation and the
+    captured pool in place; one graph a kind and pow-2 count used; each
+    kind's wall a call (host clock to a synchronise, median of
+    POOL_ITERS) on both sides."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import rules
+    from repro_torch.serving import ModelBackend
+
+    t0 = time.perf_counter()
+    captures = dict(CAPTURES)
+    sides = {side: ModelBackend(model, params, n_slots=8, max_len=1024,
+                                kv_pages=POOL_PAGES, host_kv_pages=POOL_HOST,
+                                cache_dtype=torch.bfloat16, device=DEVICE,
+                                graphs=side == "captured")
+             for side in ("captured", "eager")}
+    cap, eag = sides["captured"], sides["eager"]
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    for be in sides.values():
+        be.kv._ensure_host_storage()
+    pairs = list(zip(rules.pool_tensors(cap.kv)
+                     + [cap.kv.host.k_host, cap.kv.host.v_host],
+                     rules.pool_tensors(eag.kv)
+                     + [eag.kv.host.k_host, eag.kv.host.v_host]))
+    for a, b in pairs:
+        x = torch.randn(a.shape, generator=g, device=DEVICE).to(a.dtype)
+        a.copy_(x)
+        b.copy_(x)
+    del x
+    ptrs = rules.pool_ptrs(cap.kv)
+    page_bytes = cap.kv.page_bytes
+    rng = np.random.default_rng(seed)
+
+    def moves(n):
+        pages = rng.permutation(POOL_PAGES)[:2 * n].tolist()
+        slots = rng.permutation(POOL_HOST)[:n].tolist()
+        return {"copy": lambda kv: kv._device_copy(pages[:n], pages[n:]),
+                "swap_in": lambda kv: kv._swap_in_device(slots, pages[:n])}
+
+    def equal():
+        torch.cuda.synchronize()
+        return all(torch.equal(a, b) for a, b in zip(
+            rules.pool_tensors(cap.kv), rules.pool_tensors(eag.kv)))
+
+    rows = []
+    for n in POOL_N:
+        for rep in range(2):                  # capture, then replay
+            for kind, move in moves(n).items():
+                for be in sides.values():
+                    move(be.kv)
+                raise_failed(f"phase 17 (ii) {kind} of {n} pages", [
+                    (equal(), f"the pools differ after call {rep + 1}"),
+                    *pool_checks("phase 17 (ii) pool", cap.kv, ptrs)])
+        row = {"n": n, "bucket": len(cap.kv._pad_pow2(list(range(n)))),
+               "bytes_moved": n * page_bytes}
+        for kind, move in moves(n).items():
+            for side, be in sides.items():
+                ts = []
+                for _ in range(POOL_ITERS):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    move(be.kv)
+                    torch.cuda.synchronize()
+                    ts.append((time.perf_counter() - t1) * 1e3)
+                row[f"{kind}_{side}_ms"] = statistics.median(ts)
+        rows.append(row)
+        log(f"phase 17 (ii) n {n} (bucket {row['bucket']}, "
+            f"{row['bytes_moved'] / 1e6:.2f} MB of K+V): COW copy "
+            f"{row['copy_captured_ms']:.4f} ms captured vs "
+            f"{row['copy_eager_ms']:.4f} eager; swap-in "
+            f"{row['swap_in_captured_ms']:.4f} ms captured vs "
+            f"{row['swap_in_eager_ms']:.4f} eager (median of {POOL_ITERS})")
+    kinds = {}
+    for key in cap.graphs.entries:
+        kinds.setdefault(key[0], []).append(key[2])
+    buckets = sorted({r["bucket"] for r in rows})
+    raise_failed("phase 17 (ii)", [
+        (equal(), "the pools differ after the timed calls"),
+        *pool_checks("phase 17 (ii) pool", cap.kv, ptrs),
+        ({k: sorted(v) for k, v in kinds.items()}
+         == {"copy": buckets, "swap_in": buckets},
+         f"graphs {kinds}, want one a kind and bucket of {buckets}"),
+        (not rules.check_pool_graph_churn(cap.graphs, cap.kv),
+         "HLO005's pool bound")])
+    res = {"rows": rows, "page_bytes": page_bytes,
+           "capture": graph_stats(cap, captures),
+           "wall_s": time.perf_counter() - t0}
+    log(f"phase 17 (ii): pools bit-equal after every copy and swap-in and "
+        f"in place; graphs {dict((k, sorted(v)) for k, v in kinds.items())}"
+        f"; capture {res['capture']}; {res['wall_s']:.3f} s wall")
+    del sides, cap, eag, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_leaves(state) -> dict:
+    """A train state's params, moments and step counter by name."""
+    out = dict(state["params"])
+    for k, mu in state["opt"]["mu"].items():
+        out.update({f"{k}@{n}": t for n, t in mu.items()})
+    out["step"] = state["opt"]["step"]
+    return out
+
+
+TRAIN_HELD_AT = 3                  # (i): the state compared after 3 steps
+TRAIN_SYNC_STEP = 4                # (i): the replay run under sync debug
+
+
+def train_graphs_phase(seed: int, workdir: Path, phase12: dict) -> dict:
+    """Phase 17 (i): SDAR-8B-4L (phase 12's ``TRAIN_*``) trained by an
+    eager twin ``Trainer(graphs=False)`` and by a captured ``Trainer``
+    from the same seed, step by step: per-step losses equal; the params,
+    moments and step counter after TRAIN_HELD_AT steps (the capture's
+    eager first step and two replays) bit-equal to the twin's (else a
+    second eager run sets the floor the captured run is held to); the
+    live tensors in place and ``memory_allocated`` flat over the replays;
+    the replay of step TRAIN_SYNC_STEP under the sync debug mode (no host
+    sync); step walls (median of steps 3-10, each to its loss on the
+    host) on both sides; one more step of each profiled; the graph's node
+    count, capture seconds and pool bytes; phase 12's restart drill, now
+    captured, read back."""
+    import torch
+
+    from repro_torch.analysis import rules
+    from repro_torch.configs import get_config
+    from repro_torch.training import (AdamWConfig, DataConfig, Trainer,
+                                      TrainerConfig)
+    from repro_torch.training.train_loop import _state_ptrs
+
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH).replace(**TRAIN_CUTS)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_T,
+                    global_batch=TRAIN_B)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                          total_steps=TRAIN_STEPS)
+
+    def drive(graphs):
+        """One run of TRAIN_STEPS steps: its readings and the state after
+        TRAIN_HELD_AT steps, on the host; the trainer is freed."""
+        captures = dict(CAPTURES)
+        tr = Trainer(cfg, dc, opt_cfg, TrainerConfig(
+            total_steps=TRAIN_STEPS, ckpt_every=0, ckpt_dir=str(workdir),
+            log_every=TRAIN_STEPS + 1, seed=seed), device=DEVICE,
+            graphs=graphs)
+        state, _ = tr.start(resume=False)
+        out = {"losses": [], "walls_s": [], "mem": [], "syncs": None}
+        held, ptrs = {}, None
+        for step in range(TRAIN_STEPS):
+            if step == TRAIN_HELD_AT:
+                held = {k: t.cpu() for k, t in train_leaves(state).items()}
+            torch.cuda.synchronize()
+            if step >= 1:                   # step 0 ran eagerly (captured)
+                NODES["on"] = False
+                ptrs = ptrs or _state_ptrs(state)
+                if _state_ptrs(state) != ptrs:
+                    raise AssertionError(f"phase 17 (i): the params or "
+                                         f"moments moved before step {step}")
+                out["mem"].append(torch.cuda.memory_allocated())
+            t1 = time.perf_counter()
+            if step == TRAIN_SYNC_STEP:
+                out["syncs"], m = rules.count_syncs(
+                    lambda: tr.train_step(state, step), DEVICE)
+            else:
+                m = tr.train_step(state, step)
+            out["losses"].append(float(m["loss"]))
+            out["walls_s"].append(time.perf_counter() - t1)
+            # the eager step's metrics are its own tensors: let them go
+            # before memory is read
+            del m
+        torch.cuda.synchronize()
+        out["mem"].append(torch.cuda.memory_allocated())
+        out["profile"] = device_profile(
+            lambda: tr.train_step(state, TRAIN_STEPS), None, 1)
+        out["median_step_s"] = statistics.median(out["walls_s"][2:])
+        out["capture"] = graph_stats(tr, captures)
+        del tr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out, held
+
+    def diff(a, b) -> tuple:
+        """max |a - b| over the leaves of two host states (0.0: bit-equal)
+        and the leaves that differ."""
+        worst, bad = 0.0, []
+        for k, t in a.items():
+            if not torch.equal(t, b[k]):
+                bad.append(k)
+                worst = max(worst, float((t.float() - b[k].float()).abs()
+                                         .max()))
+        return worst, bad
+
+    eager, e_held = drive(False)
+    NODES["on"] = True
+    n_nodes = len(NODES["counts"])
+    try:
+        run, c_held = drive(None)
+    finally:
+        NODES["on"] = False
+    stats = run["capture"]
+    stats["nodes"] = NODES["counts"][n_nodes:]
+    worst, bad = diff(c_held, e_held)
+    res = {"arch": cfg.name, "cuts": TRAIN_CUTS, "B": TRAIN_B, "T": TRAIN_T,
+           "eager": eager, "captured": run, "capture": stats,
+           "held_at_step": TRAIN_HELD_AT, "leaves": len(c_held),
+           "captured_vs_eager_max_abs": worst,
+           "captured_vs_eager_leaves_differ": bad[:8]}
+    floor = 0.0
+    if bad or run["losses"] != eager["losses"]:
+        again, e2_held = drive(False)
+        floor, bad2 = diff(e2_held, e_held)
+        res.update({"eager_vs_eager_max_abs": floor,
+                    "eager_vs_eager_leaves_differ": bad2[:8],
+                    "eager2_losses": again["losses"]})
+    del c_held, e_held
+    drill = phase12["drill"]
+    res["drill"] = drill
+    log(f"phase 17 (i) {cfg.name} ({cfg.n_layers} layers, B {TRAIN_B} x "
+        f"{TRAIN_T}): losses captured {run['losses']} vs eager "
+        f"{eager['losses']}; after {TRAIN_HELD_AT} steps {len(bad)} of "
+        f"{res['leaves']} leaves differ (max |diff| {worst!r}"
+        + (f"; eager vs eager {res['eager_vs_eager_max_abs']!r}"
+           if "eager_vs_eager_max_abs" in res else "") + ")")
+    log(f"  step wall (median of steps 3-{TRAIN_STEPS}): captured "
+        f"{run['median_step_s'] * 1e3:.2f} ms vs eager "
+        f"{eager['median_step_s'] * 1e3:.2f} ms; first step captured "
+        f"{run['walls_s'][0]:.3f} s, eager {eager['walls_s'][0]:.3f} s")
+    for side, r in (("captured", run), ("eager", eager)):
+        p = r["profile"]
+        log(f"  profiled step, {side}: wall {p['wall_ms_profiled']:.2f} ms, "
+            f"device {p['device_ms_per_dispatch']:.2f} ms (busy share "
+            f"{p['device_busy_share']:.3f}) in "
+            f"{p['device_kernels_per_dispatch']:.0f} kernels")
+    log(f"  capture: {stats}; memory_allocated over the replays "
+        f"{sorted(set(run['mem']))}; host syncs in the step-"
+        f"{TRAIN_SYNC_STEP} replay {run['syncs']}")
+    log(f"  phase 12's restart drill, captured: final loss "
+        f"{drill['resumed_losses'][-1]!r} vs {phase12['losses'][-1]!r} "
+        f"(|diff| {drill['final_loss_abs_diff']:.3e}, rtol {RESUME_RTOL}); "
+        f"resumed trainer {drill['graphs']}")
+    equal_losses = run["losses"] == eager["losses"]
+    raise_failed("phase 17 (i)", [
+        (worst <= floor, f"after {TRAIN_HELD_AT} steps the captured state "
+         f"differs from the eager twin's by {worst} (leaves {bad[:8]}), "
+         f"above the eager-vs-eager floor {floor}"),
+        (equal_losses or floor > 0, f"losses {run['losses']} vs "
+         f"{eager['losses']} with a bit-equal eager floor"),
+        (len(set(run["mem"])) == 1,
+         f"memory_allocated moved over the replays: {run['mem']}"),
+        (run["syncs"] == 0, f"{run['syncs']} host syncs in a replay"),
+        (stats["graphs"] == 1 and stats["replays"] == TRAIN_STEPS,
+         f"graphs {stats}"),
+        (drill["graphs"] is not None
+         and drill["graphs"]["replays"] == len(drill["resumed_losses"]) - 1,
+         f"the resumed drill was not captured: {drill['graphs']}")])
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"phase 17 (i): {res['wall_s']:.3f} s wall")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the slot path captured (phase 16): the recurrent-slot dispatches as graphs
 # ---------------------------------------------------------------------------
 
@@ -4315,6 +4612,12 @@ def train_phase(seed: int, workdir: Path) -> dict:
     t0 = time.perf_counter()
     losses = tr.run(resume=False)
     wall = time.perf_counter() - t0
+    # the run's graph cache holds its state (the replays write it in
+    # place): read it, then let both go
+    res["graphs"] = graph_stats(tr)
+    tr.graphs = None
+    gc.collect()
+    torch.cuda.empty_cache()
     kernel_launches = cpa.LAUNCHES + bda.LAUNCHES
     times = list(tr.monitor._times[0])
     med = statistics.median(times)
@@ -4336,7 +4639,11 @@ def train_phase(seed: int, workdir: Path) -> dict:
         drill.run(resume=False)
     except SimulatedFailure:
         failed = True
-    resumed = trainer(0, "drill").run(resume=True)
+    del drill
+    gc.collect()
+    torch.cuda.empty_cache()
+    resumer = trainer(0, "drill")
+    resumed = resumer.run(resume=True)
     diff = abs(resumed[-1] - losses[-1])
     res["drill"] = {"failed_at": DRILL_FAIL, "checkpoint_at": DRILL_CKPT,
                     "injected_failure_raised": failed,
@@ -4344,7 +4651,8 @@ def train_phase(seed: int, workdir: Path) -> dict:
                     "final_loss_abs_diff": diff,
                     "bit_exact": resumed[-1] == losses[-1],
                     "resumed_matches_steps": resumed == losses[DRILL_CKPT:],
-                    "rtol": RESUME_RTOL}
+                    "rtol": RESUME_RTOL, "graphs": graph_stats(resumer)}
+    del resumer
     log(f"  restart drill: failure at step {DRILL_FAIL} raised {failed}; "
         f"resumed from the step-{DRILL_CKPT} checkpoint, losses "
         f"{[round(x, 4) for x in resumed]}; final loss {resumed[-1]!r} vs "
@@ -4440,6 +4748,9 @@ def train_phase(seed: int, workdir: Path) -> dict:
         (diff <= RESUME_RTOL * abs(losses[-1]),
          f"resumed final loss {resumed[-1]} vs {losses[-1]}"),
         (kernel_launches == 0, "the training route launched a hand kernel"),
+        (res["graphs"] is not None
+         and res["graphs"]["replays"] == TRAIN_STEPS - 1,
+         f"the 10-step run did not replay its step: {res['graphs']}"),
         (finite, "non-finite logits in the forward check"),
         (res["forward"]["attention_calls"] == [cfg.n_layers] * 2,
          f"attention calls {res['forward']['attention_calls']}"),
@@ -5102,6 +5413,9 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
     graphs_res["serving"] = capture_totals(
         runs + cluster_res["runs"] + [cluster_res["drill"]]
         + split_res["runs"])
+    torch.cuda.empty_cache()
+    log_phase("17 (ii): SDAR-8B page moves captured")
+    jit_res = {"pool": pool_graphs_phase(model, params, args.seed)}
     del model, params
     free("sdar-8b")
 
@@ -5187,6 +5501,9 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
     try:
         train_res = train_phase(args.seed, workdir)
         free(f"{TRAIN_ARCH} training")
+        log_phase("17 (i): the train step captured")
+        jit_res["train"] = train_graphs_phase(args.seed, workdir, train_res)
+        free(f"{TRAIN_ARCH} captured training")
         launcher_res = launcher_phase(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -5311,7 +5628,8 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
              "wave_vs_chunked": wave_vs_chunked, "train": train_res,
              "launcher": launcher_res, "encdec_train": enc_train_res,
              "encdec": encdec_res, "analysis": analysis_res,
-             "graphs": graphs_res, "slot_graphs": slot_res}, indent=1))
+             "graphs": graphs_res, "slot_graphs": slot_res,
+             "jit_graphs": jit_res}, indent=1))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -109,15 +109,19 @@ def audit_graphs(kv_shards: int, device, verbose: bool = False,
                  stats=None) -> list:
     """The captured dispatches of a ``ModelBackend`` on the audit model at
     ``kv_shards``: HLO005 over the graphs its decode path captures for raw
-    batches 1..4 (at most 3), then one replay of each dispatch kind
-    (decode, chunked prefill, wave prefill) held to HLO001 (the pool in
-    place; on the card no growth of ``memory_allocated``) and HLO003
-    (``8·B·c`` bytes out of a decode, ``8·B`` out of a prefill; on the
-    card no host sync).  The card captures CUDA graphs; elsewhere the
-    stand-in capturer (``RerunCapturer``) replays.  At one shard it also
-    audits a recurrent-slot backend (:func:`audit_slot_graphs`).
-    ``stats``, when given, receives each replay's syncs and bytes grown and
-    the graphs captured (the slot backend's under ``"slot"``)."""
+    batches 1..4 (at most 3 of the paged kinds), then one replay of each
+    dispatch kind (decode, chunked prefill, wave prefill) held to HLO001
+    (the pool in place; on the card no growth of ``memory_allocated``) and
+    HLO003 (``8·B·c`` bytes out of a decode, ``8·B`` out of a prefill; on
+    the card no host sync); then the page moves — a COW copy and a swap-in
+    of 3 pages into every block, captured, then replayed once each — held
+    to HLO001, HLO003's no-sync half and HLO005's pool bound
+    (:func:`rules.check_pool_graph_churn`).  The card captures CUDA
+    graphs; elsewhere the stand-in capturer (``RerunCapturer``) replays.
+    At one shard it also audits a recurrent-slot backend
+    (:func:`audit_slot_graphs`).  ``stats``, when given, receives each
+    replay's syncs and bytes grown and the graphs captured (the slot
+    backend's under ``"slot"``)."""
     import numpy as np
     import torch
 
@@ -137,7 +141,7 @@ def audit_graphs(kv_shards: int, device, verbose: bool = False,
                                device=dev)
     be = ModelBackend(model, params, n_slots=8, max_len=64, kv_shards=S,
                       device=dev, kv_mesh=make_kv_mesh(S, devices=[dev] * S)
-                      if S > 1 else None,
+                      if S > 1 else None, host_kv_pages=3,
                       graphs=True if cuda else RerunCapturer())
     target = f"graphs@kv{S}"
     B, c, T = AUDIT_B, AUDIT_C, AUDIT_T
@@ -168,16 +172,29 @@ def audit_graphs(kv_shards: int, device, verbose: bool = False,
             toks=np.zeros((B, T), i64), lens=np.full(B, T, np.int32),
             tables=tables)),
     }
+    ks, _, per = be.kv.pool_blocks()
+    src = [b * per + i for b in range(len(ks)) for i in range(3)]
+    dst = [p + per - 3 for p in src]
+    kinds.update({
+        "copy": (lambda: be.kv._device_copy(src, dst), None, None),
+        "swap_in": (lambda: be.kv._swap_in_device([0, 1, 2] * len(ks),
+                                                  dst), None, None)})
+
+    def call(kind, fn, host):
+        if host is None:                # a page move: it returns nothing
+            fn()
+            return ()
+        return be._dispatch(kind, fn, **host)
+
     readings = {}
     for kind, (fn, budget, host) in kinds.items():
-        be._dispatch(kind, fn, **host)          # captured at first use
+        call(kind, fn, host)                    # captured at first use
         n = len(be.graphs.entries)
         ptrs = rules.pool_ptrs(be.kv)
         if cuda:
             torch.cuda.synchronize(dev)
             before = torch.cuda.memory_allocated(dev)
-        syncs, out = rules.count_syncs(
-            lambda: be._dispatch(kind, fn, **host), dev)
+        syncs, out = rules.count_syncs(lambda: call(kind, fn, host), dev)
         grown = None
         if cuda:
             torch.cuda.synchronize(dev)
@@ -188,10 +205,13 @@ def audit_graphs(kv_shards: int, device, verbose: bool = False,
         what = f"{target}:{kind}"
         findings += rules.check_pool_donation(be.kv, ptrs, target=what,
                                               grown_bytes=grown)
-        findings += rules.check_host_budget(list(out), budget_bytes=budget,
-                                            pool=be.kv, syncs=syncs,
-                                            target=what)
+        # a page move returns nothing: only HLO003's no-sync half holds
+        findings += rules.check_host_budget(
+            list(out), budget_bytes=budget or 0, pool=be.kv, syncs=syncs,
+            target=what)
         readings[kind] = {"syncs": syncs, "grown_bytes": grown}
+    findings += rules.check_pool_graph_churn(be.graphs, be.kv,
+                                             target=f"{target}:pool")
     if stats is not None:
         stats.update(replays=readings, graphs=len(be.graphs.entries))
     if verbose:

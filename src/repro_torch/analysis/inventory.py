@@ -8,12 +8,12 @@ over:
   a device, together with its declared expectations — the pool in place,
   host-transfer budget, analytic collective volume, shape buckets;
 * :data:`KNOWN_DISPATCH_SITES` registers every dispatch call site (a call
-  of a model dispatch method) and every graph-capture site
-  (``torch.compile``, ``torch.cuda.graph``, ``torch.cuda.CUDAGraph``) in
-  the serving modules.  :func:`audit_registration` AST-scans those modules
-  and fails (HLO006) on any unregistered site — a new dispatch or a
-  captured graph cannot ship without either an inventory entry or an
-  explicit registration.
+  of a model dispatch method, or a graph cache's ``dispatch``) and every
+  graph-capture site (``torch.compile``, ``torch.cuda.graph``,
+  ``torch.cuda.CUDAGraph``) in the serving modules and the train loop.
+  :func:`audit_registration` AST-scans those modules and fails (HLO006)
+  on any unregistered site — a new dispatch or a captured graph cannot
+  ship without either an inventory entry or an explicit registration.
 
 Entries are audited at ``kv_shards == 1`` and at ``kv_shards == 2`` on a
 mesh whose every shard is the chosen device (``make_kv_mesh(S,
@@ -232,6 +232,7 @@ SCANNED_MODULES = (
     "src/repro_torch/distributed/collectives.py",
     "src/repro_torch/kernels/ops.py",
     "src/repro_torch/serving/graphs.py",
+    "src/repro_torch/training/train_loop.py",
 )
 
 # the model methods a dispatch site calls, and the graph cache's entry
@@ -261,10 +262,17 @@ KNOWN_DISPATCH_SITES = {
      "ModelBackend._window", "self.model.chunk_forward"),
     ("src/repro_torch/serving/backends.py",
      "ModelBackend._advance", "self.model.advance_states"),
+    # the pool's page moves: each body, and the graph cache's replay of
+    # the kinds ``copy`` and ``swap_in``
     ("src/repro_torch/serving/kv_pool.py",
      "PagedKVAllocator._device_copy", "copy_pages"),
     ("src/repro_torch/serving/kv_pool.py",
      "PagedKVAllocator._swap_in_device", "write_pages"),
+    ("src/repro_torch/serving/kv_pool.py",
+     "PagedKVAllocator._pool_dispatch", "self.graphs.dispatch"),
+    # the train step's replay (a trainer's own cache)
+    ("src/repro_torch/training/train_loop.py",
+     "Trainer.train_step", "self.graphs.dispatch"),
 }
 
 

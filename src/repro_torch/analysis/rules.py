@@ -275,16 +275,24 @@ def check_recompile_churn(fn, arg_makers, *, declared_buckets: int,
         f"shape bucketing is leaking (grid: {shapes_run})")]
 
 
+# the paged dispatch kinds of a backend's graph cache (its page moves,
+# ``copy`` and ``swap_in``, are held by check_pool_graph_churn)
+PAGED_KINDS = ("decode", "chunk", "wave")
+POOL_KINDS = ("copy", "swap_in")
+
+
 def check_graph_churn(graphs, drive, raw_batches, *, declared_buckets: int,
                       target: str = "graphs") -> list:
     """The captured half of HLO005: ``drive(b)`` runs one dispatch of raw
     batch ``b`` through a backend whose graph cache is ``graphs`` (a
     :class:`~repro_torch.serving.graphs.DispatchGraphs`); over
-    ``raw_batches`` at most ``declared_buckets`` graphs may be captured."""
+    ``raw_batches`` at most ``declared_buckets`` graphs of the paged kinds
+    may be captured."""
     before = set(graphs.entries)
     for b in raw_batches:
         drive(b)
-    new = [k for k in graphs.entries if k not in before]
+    new = [k for k in graphs.entries
+           if k not in before and k[0] in PAGED_KINDS]
     if len(new) <= declared_buckets:
         return []
     return [Finding(
@@ -292,6 +300,26 @@ def check_graph_churn(graphs, drive, raw_batches, *, declared_buckets: int,
         f"raw batches {list(raw_batches)} captured {len(new)} graphs "
         f"({new}), declared bucket count is {declared_buckets} — a raw "
         f"batch reaches the graph cache unbucketed")]
+
+
+def check_pool_graph_churn(graphs, pool, *,
+                           target: str = "graphs@pool") -> list:
+    """HLO005 for the page moves: each pool kind of a backend's graph
+    cache holds at most ``blocks · (⌈log₂ P⌉ + 1)`` graphs, P the pages a
+    block: one a block and power-of-two page count (the index vectors pad
+    to one)."""
+    ks, _, per = pool.pool_blocks()
+    allowed = len(ks) * (max(per - 1, 0).bit_length() + 1)
+    out = []
+    for kind in POOL_KINDS:
+        keys = [k for k in graphs.entries if k[0] == kind]
+        if len(keys) > allowed:
+            out.append(Finding(
+                "HLO005", f"{target}:{kind}",
+                f"{len(keys)} {kind} graphs ({keys}), more than {len(ks)} "
+                f"blocks x (ceil(log2 {per}) + 1) = {allowed} — a page "
+                f"count reaches the graph cache unpadded"))
+    return out
 
 
 def check_slot_graph_churn(graphs, advance_lengths, *,

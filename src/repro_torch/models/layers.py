@@ -275,8 +275,12 @@ def _checkpointed(fn, *args):
             with use_rules(rules, mesh):
                 return fn(*a)
 
+        # the training route draws no random numbers (the diffusion masks
+        # are inputs), so the generator's state is not stashed: stashing it
+        # reads the CUDA generator, which a captured train step cannot
         return torch.utils.checkpoint.checkpoint(under_rules, *args,
-                                                 use_reentrant=False)
+                                                 use_reentrant=False,
+                                                 preserve_rng_state=False)
     return fn(*args)
 
 

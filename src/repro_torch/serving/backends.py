@@ -864,8 +864,10 @@ class ModelBackend:
     package's jitted dispatches): on a CUDA device every paged dispatch —
     decode, chunked prefill, wave prefill — replays one CUDA graph per
     bucketed shape (:class:`~repro_torch.serving.graphs.DispatchGraphs`),
-    captured at the bucket's first use; so does every slot dispatch (see
-    below).  ``graphs=None`` turns it on for a
+    captured at the bucket's first use; so do the pool's COW copies and
+    swap-ins (kinds ``copy`` and ``swap_in``, one graph a pool block and
+    pow-2 page count: ``PagedKVAllocator._pool_dispatch``) and every slot
+    dispatch (see below).  ``graphs=None`` turns it on for a
     CUDA device and off elsewhere; ``False`` runs every dispatch eagerly
     (the eager twin a captured run is held to); a capturer object (e.g.
     ``graphs.RerunCapturer()`` on the CPU) stands in for the card's.  The
@@ -996,6 +998,7 @@ class ModelBackend:
         self.prefix_misses = 0
         self.prefix_hit_tokens = 0
         self.graphs = self._graph_cache(graphs)
+        self.kv.graphs = self.graphs        # COW copies and swap-ins
 
     def _graph_cache(self, graphs):
         """The backend's ``DispatchGraphs`` (None: every dispatch eager);

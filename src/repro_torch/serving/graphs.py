@@ -1,27 +1,32 @@
 """Captured dispatches: the torch form of the JAX package's jitted
-dispatches in its ``serving/backends.py`` — the three donated paged ones
-(``_prefill_paged``, ``_prefill_chunk``, ``_decode_paged``) and the four of
+dispatches — the three donated paged ones of its ``serving/backends.py``
+(``_prefill_paged``, ``_prefill_chunk``, ``_decode_paged``), the four of
 the recurrent-slot mode (``_prefill``, ``_chunk_fwd``, ``_advance`` with
-``_merge``) — one CUDA graph per input bucket.
+``_merge``), the page pool's two donated moves of its
+``serving/kv_pool.py`` (``_copy_jit``, ``_swapin_jit``) and the train step
+of its ``training/train_loop.py`` — one CUDA graph per input bucket.
 
 :class:`DispatchGraphs` is the compile cache.  Its key is the dispatch
 kind, the bucketed shape and everything else that selects the traced code
-(``impl``, the shard count); the backend pads every host array to its
+(``impl``, the shard count); the caller pads every host array to its
 bucket, so a key sees one shape.  An entry holds the static input
 tensors (allocated once), the captured graph, its static outputs, the
-pool's ``data_ptr``\\ s at capture, and the Python-side counters' deltas
-recorded while capturing.
+``data_ptr``\\ s at capture of what the dispatch writes in place, and the
+Python-side counters' deltas recorded while capturing.
 
-* First use of a key: the host arrays are copied into the new static
-  inputs and the dispatch runs once eagerly (on the capturer's side
-  stream: the BLAS handles and the allocator warm up there).  That run IS
-  the call's dispatch — its outputs are returned and it is the only run
-  that writes the pool.  Then the graph is captured; capture records work
-  and runs none, so the pool is written exactly once.
-* Later calls: the host arrays go through pinned staging tensors into the
-  static inputs (``copy_(..., non_blocking=True)``, the whole padded array
-  every call, so a padded row never keeps an earlier call's values), the
-  graph replays, and the static outputs are returned.
+* First use of a key: the inputs are copied into the new static inputs
+  and the dispatch runs once eagerly (on the capturer's side stream: the
+  BLAS handles and the allocator warm up there).  That run IS the call's
+  dispatch — its outputs are returned and it is the only run that writes
+  the pool (or, for the train step, the params and moments).  Then the
+  graph is captured; capture records work and runs none, so what the
+  dispatch writes in place is written exactly once.
+* Later calls: the inputs go into the static inputs, the graph replays,
+  and the static outputs are returned.  A numpy array or a host tensor
+  goes through a pinned staging tensor (``copy_(..., non_blocking=True)``;
+  a tensor already pinned is copied from directly), a device tensor by a
+  device-to-device ``copy_``; the whole padded input every call, so a
+  padded row never keeps an earlier call's values.
 
 Invariants:
 
@@ -31,15 +36,19 @@ Invariants:
   overwrite them.  That is safe only because the caller is done with each
   replay's outputs before any other graph of the cache replays: the paged
   path copies every replay's conf/tok to the host
-  (``ModelBackend._to_host``); the slot path fetches an AR step's and an
-  admission's logits at once, and ``ModelBackend._step_slots`` fetches a
-  window's logits before any block commit replays (a block commit's
-  logits are never read).
+  (``ModelBackend._to_host``) before the pool's COW copies and swap-ins
+  (kinds ``copy`` and ``swap_in``, which return nothing) replay; the slot
+  path fetches an AR step's and an admission's logits at once, and
+  ``ModelBackend._step_slots`` fetches a window's logits before any block
+  commit replays (a block commit's logits are never read).  A trainer's
+  cache holds its train step's graphs alone, whose loss, norm and lr are
+  read before the next step replays.
 * What the dispatches write in place (``pool_ptrs()``: the page pool's
-  blocks, or the slot cache's tensors) must be where it was at capture: a
-  replay that finds it moved raises.  A capture that fails raises too: there is
-  no fall-back to the eager path, and the capture error mode stays at
-  PyTorch's default (``"global"``).
+  blocks, the slot cache's tensors, or a trainer's params and moments)
+  must be where it was at capture: a replay that finds it moved raises.
+  A capture that fails raises too: there is no fall-back to the eager
+  path, and the capture error mode stays at PyTorch's default
+  (``"global"``).
 * The hand kernels' wrappers, the MoE grouped product and the collective
   record count at trace time (``LAUNCHES``, ``MERGE_LAUNCHES``,
   ``GROUPED_CALLS``, ``collectives.RECORD``), which under replay would
@@ -55,6 +64,7 @@ replay, copying its results into the static outputs.
 
 from __future__ import annotations
 
+import gc
 from dataclasses import dataclass
 
 import numpy as np
@@ -121,19 +131,37 @@ class CudaCapturer:
 
     def capture(self, fn, like):
         """``(replay, static outputs)`` of ``fn`` captured into a graph;
-        ``like`` (the warm-up's outputs) is unused."""
+        ``like`` (the warm-up's outputs) is unused.
+
+        As ``torch.cuda.graph`` does, the allocator's unused blocks are
+        released first: the warm-up's temporaries sit in its cache, which
+        cannot be freed while a stream captures, so a graph that needs
+        fresh segments (a train step's 27 GB) would run out of memory.
+        The garbage collector stays off while capturing: a graph that it
+        destroys mid-capture (an old cache in a reference cycle) resets
+        itself, which invalidates the capture.  Unlike
+        ``torch.cuda.graph``, no collection runs first: a full one costs a
+        large process a fifth of a second a capture."""
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(self.stream):
-            g.capture_begin(pool=self.pool)
-            try:
-                out = fn()
-            except BaseException:
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(self.stream):
+                g.capture_begin(pool=self.pool)
                 try:
-                    g.capture_end()
-                except RuntimeError:
-                    pass                # the failed capture's own error
-                raise
-            g.capture_end()
+                    out = fn()
+                except BaseException:
+                    try:
+                        g.capture_end()
+                    except RuntimeError:
+                        pass            # the failed capture's own error
+                    raise
+                g.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         return g.replay, out
 
     def pool_bytes(self) -> int | None:
@@ -189,11 +217,11 @@ class DispatchGraphs:
         self.replays = 0
 
     def dispatch(self, key, fn, host: dict) -> tuple:
-        """Run the dispatch of ``key`` on the host arrays ``host`` (name →
-        numpy array at the key's shape: ints, or a bool mask): ``fn(t)``,
-        with ``t`` the static
-        inputs by name, returns its output tensors.  Returns those outputs,
-        on the device."""
+        """Run the dispatch of ``key`` on the inputs ``host`` (name → numpy
+        array or tensor at the key's shape: ints, a bool mask, floats in
+        any torch dtype, on the host or the device): ``fn(t)``, with ``t``
+        the static inputs by name, returns its output tensors.  Returns
+        those outputs, on the device."""
         e = self.entries.get(key)
         if e is None:
             return self._first(key, fn, host)
@@ -213,22 +241,33 @@ class DispatchGraphs:
         for name, a in host.items():
             t = static[name]
             if tuple(a.shape) != tuple(t.shape):
-                raise ValueError(f"input {name}: shape {a.shape}, the "
-                                 f"graph's {tuple(t.shape)}")
-            if not pin:
-                t.numpy()[...] = a
+                raise ValueError(f"input {name}: shape {tuple(a.shape)}, "
+                                 f"the graph's {tuple(t.shape)}")
+            tensor = isinstance(a, torch.Tensor)
+            if not pin or (tensor and a.device == t.device):
+                if tensor:
+                    t.copy_(a)
+                else:
+                    t.numpy()[...] = a
+                continue
+            if tensor and a.is_pinned():
+                t.copy_(a, non_blocking=True)
                 continue
             # a fresh pinned block a call: the host allocator does not hand
             # it out again before this copy has completed
             src = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            src.numpy()[...] = a
+            if tensor:
+                src.copy_(a)
+            else:
+                src.numpy()[...] = a
             t.copy_(src, non_blocking=True)
 
     def _first(self, key, fn, host: dict) -> tuple:
-        static = {name: torch.empty(a.shape, device=self.device,
-                                    dtype=torch.from_numpy(
-                                        np.empty(0, a.dtype)).dtype)
-                  for name, a in host.items()}
+        static = {name: torch.empty(
+            tuple(a.shape), device=self.device,
+            dtype=a.dtype if isinstance(a, torch.Tensor)
+            else torch.from_numpy(np.empty(0, a.dtype)).dtype)
+            for name, a in host.items()}
         self._load(static, host)
         run = lambda: tuple(fn(static))  # noqa: E731
         out = self.capturer.warm(run)

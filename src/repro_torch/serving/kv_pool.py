@@ -230,6 +230,8 @@ class PagedKVAllocator:
     # the pool as blocks: one a shard (an unsharded pool's one tensor)
     _k_blocks: list = field(default_factory=list, init=False)
     _v_blocks: list = field(default_factory=list, init=False)
+    # the owning ModelBackend's DispatchGraphs (None: page moves run eagerly)
+    graphs: object = field(default=None, init=False)
 
     def __post_init__(self):
         assert self.kv_shards >= 1
@@ -898,7 +900,11 @@ class PagedKVAllocator:
     # pair — a duplicate identical write/copy is a no-op), so the pool's
     # storage never moves: ``k_pages.data_ptr()`` (of every shard's block)
     # is stable for the pool's life.  A sharded pool routes each global
-    # page to (its shard's block, its local index).
+    # page to (its shard's block, its local index).  COW copies and
+    # swap-ins (the reference's donated ``_copy_jit``/``_swapin_jit``)
+    # replay a CUDA graph of the owning backend's cache, one a (kind,
+    # block, padded count); a pool on its own runs them eagerly.  Spills
+    # stay eager, as the reference's are no jit either.
     # ------------------------------------------------------------------
     def pool_blocks(self):
         """The pool as (k blocks, v blocks, pages a block): block ``s`` holds
@@ -953,6 +959,18 @@ class PagedKVAllocator:
     def _index(idx, block) -> torch.Tensor:
         return _host_index(idx).to(block.device)
 
+    def _pool_dispatch(self, kind: str, b: int, fn, host: dict):
+        """One page move ``fn(t)`` on block ``b``, ``t`` holding the arrays
+        of ``host`` (index vectors padded to a power of two, host pages):
+        replayed from the owning backend's graph cache (``self.graphs``,
+        keyed ``(kind, b, n)``, n the padded count) when it has one, else
+        run eagerly on the arrays moved to the block's device."""
+        k = self._k_blocks[b]
+        if self.graphs is None:
+            return fn({name: a if isinstance(a, torch.Tensor)
+                       else self._index(a, k) for name, a in host.items()})
+        return self.graphs.dispatch((kind, b, len(host["dst"])), fn, host)
+
     def _device_copy(self, src: list, dst: list):
         """COW copies ``src[i] → dst[i]``; a destination is on its source's
         shard (the striping invariant), so each copy stays in one block."""
@@ -962,19 +980,37 @@ class PagedKVAllocator:
             lsrc = [src[i] - b * per for i in pos]
             assert all(0 <= p < per for p in lsrc), \
                 "a COW destination left its source's shard"
-            copy_pages({"k_pages": ks[b], "v_pages": vs[b]},
-                       self._index(self._pad_pow2(lsrc), ks[b]),
-                       self._index(self._pad_pow2(loc), ks[b]))
+
+            def move(t, b=b):
+                copy_pages({"k_pages": ks[b], "v_pages": vs[b]}, t["src"],
+                           t["dst"])
+                return ()
+
+            self._pool_dispatch("copy", b, move, {
+                "src": self._pad_pow2(lsrc).astype(np.int64),
+                "dst": self._pad_pow2(loc).astype(np.int64)})
 
     def _swap_in_device(self, slots: list, pages: list):
+        """Host-tier ``slots`` → device ``pages``, pairwise: the host pages
+        are gathered (into pinned memory on a CUDA pool) and written whole."""
         from repro_torch.models.transformer import write_pages
         self._ensure_host_storage()
         ks, vs, _ = self.pool_blocks()
+        h = self.host
         for b, pos, loc in self._by_block(pages):
             sl = _host_index(self._pad_pow2([slots[i] for i in pos]))
-            write_pages({"k_pages": ks[b], "v_pages": vs[b]},
-                        self._index(self._pad_pow2(loc), ks[b]),
-                        self.host.k_host[:, sl], self.host.v_host[:, sl])
+            k_new, v_new = (torch.index_select(t, 1, sl, out=torch.empty(
+                (t.shape[0], len(sl)) + tuple(t.shape[2:]), dtype=t.dtype,
+                pin_memory=t.is_pinned())) for t in (h.k_host, h.v_host))
+
+            def move(t, b=b):
+                write_pages({"k_pages": ks[b], "v_pages": vs[b]}, t["dst"],
+                            t["k_new"], t["v_new"])
+                return ()
+
+            self._pool_dispatch("swap_in", b, move, {
+                "dst": self._pad_pow2(loc).astype(np.int64),
+                "k_new": k_new, "v_new": v_new})
 
     def _ensure_host_storage(self):
         k = self._k_blocks[0]

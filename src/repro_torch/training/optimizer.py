@@ -4,8 +4,9 @@ global-norm clipping, bias correction, an optional low-precision
 second moment — the JAX package's ``training/optimizer.py`` in torch.
 
 ``update`` runs under ``torch.no_grad()`` and writes the params and the
-moments in place (all on the params' device, no host sync); it returns
-them too, with the reference's ``(params, state, metrics)``.
+moments in place (all on the params' device, no host sync, so a CUDA
+graph can hold it); it returns them too, with the reference's ``(params,
+state, metrics)``.
 """
 
 from __future__ import annotations
@@ -81,8 +82,12 @@ class AdamW:
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                for g in grads.values()))
         scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-        bc1 = 1 - torch.pow(torch.tensor(cfg.b1, device=stepf.device), stepf)
-        bc2 = 1 - torch.pow(torch.tensor(cfg.b2, device=stepf.device), stepf)
+        # the bases are filled on the device: a host tensor's copy would
+        # synchronise, and cannot be captured into a CUDA graph
+        bc1 = 1 - torch.pow(torch.full((), cfg.b1, device=stepf.device),
+                            stepf)
+        bc2 = 1 - torch.pow(torch.full((), cfg.b2, device=stepf.device),
+                            stepf)
         for name, p in params.items():
             g = grads[name].float() * scale
             mu = state["mu"][name]

@@ -5,7 +5,11 @@ injection and straggler monitoring (the JAX package's
 
 The step differentiates the models' training route with ``torch.autograd``
 (the hand kernels have no backward pass and are never on it), then runs
-:meth:`AdamW.update`, which writes the params and moments in place.
+:meth:`AdamW.update`, which writes the params and moments in place.  On a
+CUDA device :class:`Trainer` replays the whole step — every microbatch's
+forward and backward, and the update — as one CUDA graph
+(``serving/graphs.py``), the torch form of the reference's
+``jax.jit(make_train_step(...))``.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch.models.registry import build_model
+from repro_torch.serving.graphs import DispatchGraphs
 from repro_torch.training import checkpoint as ckpt_lib
 from repro_torch.training.data import DataConfig, SyntheticTokenStream
 from repro_torch.training.fault_tolerance import StragglerMonitor
@@ -129,13 +134,38 @@ class TrainerConfig:
     seed: int = 0
 
 
+def _state_ptrs(state) -> tuple:
+    """The ``data_ptr``\\ s of a train state's params and optimizer leaves
+    (what a captured step writes in place)."""
+    def leaves(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                yield from leaves(v)
+        else:
+            yield x
+    return tuple(t.data_ptr() for t in leaves(
+        {"params": state["params"], "opt": state["opt"]}))
+
+
 class Trainer:
-    """Single-process trainer with checkpoint/restart, on ``device``."""
+    """Single-process trainer with checkpoint/restart, on ``device``.
+
+    ``graphs`` as ``ModelBackend`` takes it: ``None`` replays the train
+    step as one CUDA graph on a CUDA device (captured at a key's first
+    step, which runs eagerly and is the step) and runs it eagerly
+    elsewhere; ``False`` is the eager twin; a capturer object (e.g.
+    ``graphs.RerunCapturer()`` on the CPU) stands in for the card's.  The
+    graph's key is ``("train", B, T, microbatches, family)``; its static
+    inputs are the tokens and the diffusion masks, which are drawn outside
+    the graph from :func:`step_generator`, as the eager step draws them.
+    The params and moments are the live tensors: a replay that finds one
+    moved raises.  Each :meth:`start` makes a new graph cache for its
+    state (after any restore)."""
 
     def __init__(self, arch_cfg, data_cfg: DataConfig,
                  opt_cfg: AdamWConfig | None = None,
                  trainer_cfg: TrainerConfig | None = None,
-                 failure_injector=None, *, device="cuda"):
+                 failure_injector=None, *, device="cuda", graphs=None):
         self.arch_cfg = arch_cfg
         self.model = build_model(arch_cfg)
         self.opt = AdamW(opt_cfg or AdamWConfig())
@@ -147,6 +177,9 @@ class Trainer:
         self.device = torch.device(device)
         self._step_fn = make_train_step(self.model, self.opt,
                                         microbatches=self.tc.microbatches)
+        self._diffusion = terms_for(self.model.cfg) is block_diffusion_terms
+        self._graphs = graphs
+        self.graphs = None          # the graph cache of the last start()
 
     def init_state(self):
         """Weights drawn from a generator seeded with ``TrainerConfig.seed``
@@ -155,32 +188,74 @@ class Trainer:
         params = self.model.init_params(gen, device=self.device)
         return {"params": params, "opt": self.opt.init(params), "step": 0}
 
-    def run(self, resume: bool = True):
-        """Train to ``total_steps`` (from the latest checkpoint when
-        ``resume``); returns this run's losses."""
+    def start(self, resume: bool = True):
+        """``(state, first step)``: a fresh state, or with ``resume`` the
+        latest checkpoint's; then a new graph cache for that state (the
+        last one, which holds its own state, is let go first)."""
+        self.graphs = None
         state = self.init_state()
         start = 0
         if resume and self.ckpt.latest_step() is not None:
             restored, start = self.ckpt.restore_latest(
                 {"params": state["params"], "opt": state["opt"]})
             state["params"], state["opt"] = restored["params"], restored["opt"]
+        graphs = self._graphs
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        self.graphs = None if graphs is False else DispatchGraphs(
+            self.device, lambda: _state_ptrs(state),
+            capturer=None if graphs is True else graphs)
+        return state, start
+
+    def train_step(self, state, step: int) -> dict:
+        """Train step ``step`` on ``state`` (params and moments updated in
+        place): its batch, its masks from :func:`step_generator`, then the
+        step eagerly or as a replay.  Returns the metrics, device scalars
+        (a replay's are the graph's static outputs)."""
+        tokens = self.data.batch(step)
+        masks = None
+        if self._diffusion:
+            masks = diffusion_masks(
+                step_generator(self.tc.seed, step, self.device),
+                *tokens.shape, self.model.cfg.block_size)
+        if self.graphs is None:
+            _, _, metrics = self._step_fn(
+                state["params"], state["opt"],
+                {"tokens": torch.as_tensor(tokens, device=self.device)},
+                masks=masks)
+            return metrics
+
+        def captured(t):
+            mk = None if masks is None else {k: t[k] for k in masks}
+            _, _, m = self._step_fn(state["params"], state["opt"],
+                                    {"tokens": t["tokens"]}, masks=mk)
+            return m["loss"], m["grad_norm"], m["lr"]
+
+        key = ("train", *tokens.shape, self.tc.microbatches,
+               self.model.cfg.family)
+        loss, gnorm, lr = self.graphs.dispatch(
+            key, captured, {"tokens": tokens, **(masks or {})})
+        return {"loss": loss, "grad_norm": gnorm, "lr": lr}
+
+    def run(self, resume: bool = True):
+        """Train to ``total_steps`` (from the latest checkpoint when
+        ``resume``); returns this run's losses."""
+        state, start = self.start(resume)
         losses = []
         try:
             for step in range(start, self.tc.total_steps):
                 if self.failure_injector is not None:
                     self.failure_injector.check(step)
-                batch = {"tokens": torch.as_tensor(self.data.batch(step),
-                                                   device=self.device)}
-                gen = step_generator(self.tc.seed, step, self.device)
                 t0 = time.perf_counter()
-                state["params"], state["opt"], metrics = self._step_fn(
-                    state["params"], state["opt"], batch, gen)
+                metrics = self.train_step(state, step)
                 loss = float(metrics["loss"])
                 self.monitor.record(0, time.perf_counter() - t0)
                 losses.append(loss)
                 if self.tc.ckpt_every > 0 and (
                         (step + 1) % self.tc.ckpt_every == 0
                         or step + 1 == self.tc.total_steps):
+                    # the save copies every leaf to the host before it
+                    # returns: the next replay cannot race it
                     self.ckpt.save(step + 1, {"params": state["params"],
                                               "opt": state["opt"]})
                 if (step + 1) % self.tc.log_every == 0:

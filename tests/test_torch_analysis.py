@@ -14,6 +14,9 @@ mutation-tested as the reference's is (``tests/test_analysis.py``):
 * the hand kernels are one op each in the trace, with their cost
   function's FLOPs, and take a shape-only route on ``meta`` tensors;
 * the collective record, and the sync-free page scatter;
+* the page moves and the train step registered (HLO006), HLO005 counted
+  per kind with the pool's own bound, and the graph audit replaying each
+  page move;
 * allowlist parsing and the CLI's red/green exit.
 """
 
@@ -28,7 +31,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.analysis import fixtures, hlo, inventory, lint, optrace, rules
+from repro_torch.analysis import (check, fixtures, hlo, inventory, lint,
+                                  optrace, rules)
 from repro_torch.analysis.check import DEFAULT_ALLOWLIST, main, run_pass1
 from repro_torch.analysis.findings import (Finding, apply_allowlist,
                                            load_allowlist, parse_allowlist)
@@ -73,6 +77,73 @@ def test_registration_audit_green_and_sites():
             "self.model.decode_step_paged") in sites
     assert ("src/repro_torch/serving/kv_pool.py", "copy_pages") in sites
     assert len(sites) == len(inventory.KNOWN_DISPATCH_SITES)
+
+
+def test_pool_moves_and_train_step_registered():
+    """The page moves' and the train step's replays through a graph cache
+    are registered sites (HLO006), beside the moves' bodies."""
+    sites = {(rel, qual, desc) for rel, qual, desc, _ in
+             inventory.scan_dispatch_sites()}
+    for site in (("src/repro_torch/serving/kv_pool.py",
+                  "PagedKVAllocator._pool_dispatch", "self.graphs.dispatch"),
+                 ("src/repro_torch/serving/kv_pool.py",
+                  "PagedKVAllocator._device_copy", "copy_pages"),
+                 ("src/repro_torch/serving/kv_pool.py",
+                  "PagedKVAllocator._swap_in_device", "write_pages"),
+                 ("src/repro_torch/training/train_loop.py",
+                  "Trainer.train_step", "self.graphs.dispatch")):
+        assert site in sites and site in inventory.KNOWN_DISPATCH_SITES
+
+
+def test_graph_audit_replays_the_pool_kinds_on_cpu():
+    """``audit_graphs`` at two shards: one replay of each paged kind and of
+    each page move (a COW copy and a swap-in into both blocks), 0
+    findings; 5 paged graphs and one a block of each move."""
+    stats = {}
+    assert check.audit_graphs(2, "cpu", stats=stats) == []
+    assert sorted(stats["replays"]) == ["chunk", "copy", "decode",
+                                        "swap_in", "wave"]
+    assert stats["graphs"] == 5 + 2 * 2
+
+
+class _Graphs:
+    def __init__(self, keys):
+        self.entries = dict.fromkeys(keys)
+
+
+def test_hlo005_counts_paged_graphs_per_kind():
+    """The captured half of HLO005 counts the paged kinds only (page moves
+    captured meanwhile do not count against its bound of 3); the pool
+    bound is per kind: blocks x (ceil(log2 P) + 1)."""
+    g = _Graphs([])
+    moves = iter([("copy", 0, 1), ("swap_in", 0, 2), ("copy", 0, 4),
+                  ("copy", 0, 8)])
+
+    def drive(b):
+        g.entries[("decode", (min(b, 3), 4), "kernel", 1)] = None
+        g.entries[next(moves)] = None
+    assert rules.check_graph_churn(g, drive, (1, 2, 3, 4),
+                                   declared_buckets=3) == []
+    g = _Graphs([])
+    fs = rules.check_graph_churn(
+        g, lambda b: g.entries.__setitem__(("chunk", (b, 4)), None),
+        (1, 2, 3, 4), declared_buckets=3)
+    assert [f.rule for f in fs] == ["HLO005"]
+    from repro_torch.serving.kv_pool import PagedKVAllocator
+    kv = PagedKVAllocator(8, 4, kv_shards=2)
+    kv.init_storage(1, 1, 4, device="cpu", shard=_two_shards())
+    ok = [(kind, b, n) for kind in ("copy", "swap_in") for b in (0, 1)
+          for n in (1, 2, 4)]
+    assert rules.check_pool_graph_churn(_Graphs(ok), kv) == []
+    fs = rules.check_pool_graph_churn(_Graphs(ok + [("swap_in", 1, 8)]), kv)
+    assert [(f.rule, f.target) for f in fs] == [("HLO005",
+                                                 "graphs@pool:swap_in")]
+
+
+def _two_shards():
+    from repro_torch.distributed.collectives import KVShardSpec
+    from repro_torch.launch.mesh import make_kv_mesh
+    return KVShardSpec(make_kv_mesh(2, devices=["cpu"] * 2), 2)
 
 
 def test_inventory_entries_on_cpu():

@@ -330,8 +330,9 @@ def test_hlo005_counts_graphs(monkeypatch):
     st = {}
     assert check.audit_graphs(1, "cpu", stats=st) == []
     # the churn's 3 decode buckets (batch 2 among them), then a chunk
-    # and a wave graph
-    assert st["graphs"] == 5
+    # and a wave graph, and the audited page moves' copy and swap-in
+    # graphs (one block)
+    assert st["graphs"] == 5 + 2
     monkeypatch.setattr(tserving.ModelBackend, "_bucket",
                         staticmethod(lambda n: n))
     fs = check.audit_graphs(1, "cpu")
