@@ -218,7 +218,25 @@ Phases, in order (any failed check raises and the script exits non-zero):
    ``memory_allocated`` flat over the replays, no host sync in a replay,
    the step walls (median of steps 3-10) on both sides, one more step of
    each profiled, the graph's node count, capture seconds and pool
-   bytes; phase 12's captured restart drill read back.
+   bytes; phase 12's captured restart drill read back;
+18. the examples (``examples/*_torch.py``) driven in-process on the card,
+   after phase 14: (i) ``serve_elastic_torch --tight-pool`` at its
+   defaults (every request complete, each pool drained and in place, the
+   tight pool preempting, params and pools on the card, each backend's
+   graph cache replayed, paged launches above 0), then again on the CPU
+   from the same params: the AR and fixed-8 runs' tokens held by the fp32
+   rule at each request's first difference (the margin logged), the
+   elastic run's chunks logged (the card profiles ``H100_SXM``, the CPU
+   ``CPU_HOST``); (ii) ``quickstart_torch`` (the loss at step 60 below
+   step 20's, 32 tokens a chunk, both kernels' launches logged, paged
+   above 0), each chunk's decode on the card held to the same decode on
+   the CPU from the card-trained params by the fp32 rule; (iii)
+   ``train_diffusion_lm_torch --full --steps 40`` (smollm-135m at full
+   width and depth, fp32, captured): the failure at step 25, the restart
+   from the checkpoint after 20 steps to step 40, its losses bit-equal to
+   an uninterrupted run resumed from that checkpoint, the median step,
+   ``max_memory_allocated`` and the graph's replays logged; (iv)
+   ``scheduler_sim_torch --device h100-sxm`` and ``cluster_sim_torch``.
    Each model is freed before the next is drawn.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -1959,16 +1977,19 @@ def graph_stats(be, since: dict | None = None) -> dict | None:
 
 
 def record_gaps(be, gaps: dict, margins: dict | None = None,
-                steps: dict | None = None):
+                steps: dict | None = None, rel_tol: float = BF16_TOL,
+                sampled: bool = True):
     """While a diffusion run serves, note for every committed token the
     top-1/top-2 logit gap of the decode dispatch that committed it:
-    ``gaps[id(state)][output index] = gap``, and in ``margins`` the bf16
-    rule's margin there (``BF16_TOL`` x max(|top-1|, 1) - gap; below 0 the
+    ``gaps[id(state)][output index] = gap``, and in ``margins`` the op
+    rule's margin there (``rel_tol`` x max(|top-1|, 1) - gap; below 0 the
     gap exceeds the op tolerance).  With ``steps``, every decode dispatch
     a state takes part in appends to ``steps[id(state)]`` its window and
     what decided the commits (:func:`dispatch_divergence`).  Hooks the
     decode sampler and the batched commit; undo with the returned
-    function."""
+    function.  ``sampled=False`` (a captured run, whose replays do not run
+    the sampler on the host) hooks the commit only: the steps without
+    gaps, and no gaps or margins."""
     import numpy as np
 
     import repro_torch.models.transformer as tfm
@@ -1981,24 +2002,28 @@ def record_gaps(be, gaps: dict, margins: dict | None = None,
         if logits.dim() == 3:                 # decode [B, c, V]
             top2 = logits.topk(2, dim=-1).values
             last["gap"] = top2[..., 0] - top2[..., 1]
-            last["tol"] = BF16_TOL * top2[..., 0].abs().clamp(min=1.0)
+            last["tol"] = rel_tol * top2[..., 0].abs().clamp(min=1.0)
         return sampler(logits)
 
     def apply(states, conf, tok, valid, cai):
         frozen = [st.frozen for st in states]
         mask, n_adv = commit(states, conf, tok, valid, cai)
-        gap = last.pop("gap").float().cpu().numpy()
-        tol = last.pop("tol").float().cpu().numpy()
+        if sampled:
+            gap = last.pop("gap").float().cpu().numpy()
+            tol = last.pop("tol").float().cpu().numpy()
         for i, st in enumerate(states):
             v = int(valid[i])
             if steps is not None and v:
-                steps.setdefault(id(st), []).append({
-                    "frozen": frozen[i], "valid": v, "c": mask.shape[1],
-                    "threshold": float(st.threshold),
-                    "cai": np.array(cai[i, :v]), "commit": mask[i, :v],
-                    "tok": np.array(tok[i, :v]),
-                    "conf": np.asarray(conf[i, :v], np.float64),
-                    "gap": gap[i, :v], "tol": tol[i, :v]})
+                rec = {"frozen": frozen[i], "valid": v, "c": mask.shape[1],
+                       "threshold": float(st.threshold),
+                       "cai": np.array(cai[i, :v]), "commit": mask[i, :v],
+                       "tok": np.array(tok[i, :v]),
+                       "conf": np.asarray(conf[i, :v], np.float64)}
+                if sampled:
+                    rec.update(gap=gap[i, :v], tol=tol[i, :v])
+                steps.setdefault(id(st), []).append(rec)
+            if not sampled:
+                continue
             row = gaps.setdefault(id(st), {})
             for j in np.nonzero(mask[i])[0]:
                 row[frozen[i] + int(j)] = float(gap[i, j])
@@ -2007,7 +2032,8 @@ def record_gaps(be, gaps: dict, margins: dict | None = None,
                         float(tol[i, j] - gap[i, j])
         return mask, n_adv
 
-    tfm.softmax_confidence_device = sample
+    if sampled:
+        tfm.softmax_confidence_device = sample
     backends.batch_apply_step = apply
 
     def undo():
@@ -2242,10 +2268,11 @@ def serve_twins(model, params, mode: str, reqs, max_len: int,
                       run, eager)
 
 
-def dispatch_divergence(run, base, what: str) -> dict:
+def dispatch_divergence(run, base, what: str, rule: str = "bf16") -> dict:
     """Each request's first decode dispatch (its k-th, counting only the
     dispatches it takes part in) where ``run`` and ``base`` differ, and the
-    bf16 rule held there, a check.
+    ``rule`` (the op tolerance ``base``'s steps carry as ``tol``: bf16's,
+    or fp32's) held there, a check.
 
     Up to that dispatch both runs committed the same (position, token)
     pairs, so the request's state is the same.  Where the window differs
@@ -2253,12 +2280,12 @@ def dispatch_divergence(run, base, what: str) -> dict:
     scheduler chose another chunk — other requests had diverged already —
     and the logits are of other inputs: a reading.  Where the window is
     the same, the commits differ only by the logits' rounding, and every
-    difference must sit within the op tolerance ``eps`` = ``BF16_TOL`` x
-    max(|top-1|, 1) of ``base``'s logits there: a token that flips at a
-    position both commit has ``base``'s top-1/top-2 gap under ``eps``; a
-    position above the threshold in one run only has |ln conf - ln
-    threshold| under 2·eps (a move of every logit by eps moves ln conf by
-    at most 2·eps); two runs that both commit their single most confident
+    difference must sit within the op tolerance ``eps`` = the rule's
+    relative tolerance x max(|top-1|, 1) of ``base``'s logits there: a
+    token that flips at a position both commit has ``base``'s top-1/top-2
+    gap under ``eps``; a position above the threshold in one run only has
+    |ln conf - ln threshold| under 2·eps (a move of every logit by eps
+    moves ln conf by at most 2·eps); two runs that both commit their single most confident
     position (no position above the threshold) but pick different ones
     have |ln conf_p - ln conf_q| under 2·(eps_p + eps_q).  A dispatch's
     margin is its least such margin; below 0 is a fault."""
@@ -2306,10 +2333,10 @@ def dispatch_divergence(run, base, what: str) -> dict:
     checked = {rid: x["margin"] for rid, x in out.items() if "margin" in x}
     log(f"{what}: first differing decode dispatch by request "
         f"{ {rid: (x['dispatch'], x['kind']) for rid, x in out.items()} }; "
-        f"bf16 rule's margin there (same window) {checked}")
+        f"{rule} rule's margin there (same window) {checked}")
     if faults:
         raise AssertionError(f"{what}: a first differing dispatch breaks the "
-                             f"bf16 rule: {faults}")
+                             f"{rule} rule: {faults}")
     return {"by_request": out, "checked": len(checked),
             "least_margin": min(checked.values()) if checked else None}
 
@@ -5271,6 +5298,425 @@ def dryrun_phase(proc, workdir: Path, seed: int) -> list[dict]:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the examples on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLE_SERVE_ARGS = ["--tight-pool"]        # (i), at the script's defaults
+EXAMPLE_TRAIN_ARGS = ["--full", "--steps", "40"]     # (iii): smollm-135m
+
+
+def load_example(name: str):
+    """``examples/<name>_torch.py`` as a module (the folder is no
+    package)."""
+    import importlib.util
+
+    path = ROOT / "examples" / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(what: str, fn, *a, **kw):
+    """``fn(*a, **kw)`` with what it prints logged under ``what``; returns
+    (its result, its seconds of wall)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = fn(*a, **kw)
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"  [{what}] {line}")
+    return res, time.perf_counter() - t0
+
+
+def record_ar_margins(be, margins: dict, rel_tol: float = FP32_TOL):
+    """An AR run on the CPU: for each committed token, the op rule's margin
+    at the logits that chose it (``rel_tol`` x max(|top-1|, 1) - the
+    top-1/top-2 gap; below 0 the gap exceeds the op tolerance, so a token
+    that differs there is a fault):
+    ``margins[rid][output index]``.  An AR request's first token comes
+    from its last prefill chunk, the others from its AR steps.  Wraps the
+    sampler and the backend's AR step and chunked-prefill tick; undo with
+    the returned function."""
+    import repro_torch.models.transformer as tfm
+
+    sampler = tfm.softmax_confidence_device
+    step, tick = be._step_ar_paged, be._chunked_prefill_tick
+    last = {}
+
+    def sample(logits):
+        top2 = logits.float().topk(2, dim=-1).values
+        top2 = top2.reshape(top2.shape[0], -1, 2)[:, 0]
+        last["margin"] = (rel_tol * top2[:, 0].abs().clamp(min=1.0)
+                          - (top2[:, 0] - top2[:, 1])).cpu().numpy()
+        return sampler(logits)
+
+    def ar_step(rids, infos):
+        before = {r: be.state(r).frozen for r in rids}
+        step(rids, infos)
+        for i, r in enumerate(rids):
+            margins.setdefault(r, {})[before[r]] = float(last["margin"][i])
+
+    def prefill_tick(live_bc=0):
+        fresh = tick(live_bc)
+        for i, (rid, _, _) in enumerate(be.last_prefill_plan):
+            if rid in fresh:
+                margins.setdefault(rid, {})[0] = float(last["margin"][i])
+        return fresh
+
+    tfm.softmax_confidence_device = sample
+    be._step_ar_paged, be._chunked_prefill_tick = ar_step, prefill_tick
+
+    def undo():
+        tfm.softmax_confidence_device = sampler
+    return undo
+
+
+def serve_example(se, device: str, params=None, base: bool = False) -> dict:
+    """``serve_elastic_torch.main(EXAMPLE_SERVE_ARGS)`` on ``device``: for
+    each of its five runs the committed tokens by request and every
+    diffusion dispatch's commit record (:func:`dispatch_divergence`'s);
+    as the ``base`` (the CPU run: every dispatch samples on the host) with
+    the fp32 rule's gaps and the AR run's margins, else (the card run,
+    captured) with the checks of phase 18 (i).  Returns the runs, the
+    main's result, the params it served (on the CPU), its launches and
+    its wall."""
+    import torch
+
+    from repro_torch.analysis import rules
+    from repro_torch.kernels import block_diffusion_attn as bda
+    from repro_torch.kernels import chunked_paged_attn as cpa
+
+    card = not base
+    argv = [*EXAMPLE_SERVE_ARGS, "--torch-device", device]
+    a = se.parse_args(argv)
+    steps, runs, host = {}, {}, {}
+    failed = []
+
+    def on_backend(name, be):
+        if "params" not in host:
+            host["params"] = {k: v.detach().cpu()
+                              for k, v in be.params.items()}
+        run = runs[name] = {"outputs": {}, "steps": {}, "ar_margins": {},
+                            "ptrs": rules.pool_ptrs(be.kv),
+                            "launches0": (cpa.LAUNCHES, bda.LAUNCHES)}
+        release = be.release
+
+        def spy(rid):
+            st = be.state(rid)
+            run["outputs"][rid] = st.output_tokens
+            run["steps"][rid] = steps.pop(id(st), [])
+            release(rid)
+
+        be.release = spy
+        run["undo"] = record_ar_margins(be, run["ar_margins"]) \
+            if not card and name == "ar" else None
+
+    def on_served(name, be, rep):
+        run = runs[name]
+        undo_ar = run.pop("undo")
+        if undo_ar is not None:
+            undo_ar()
+        p0, b0 = run.pop("launches0")
+        run.update(requests=len(rep.metrics), preemptions=rep.preemptions,
+                   kernel_launches=cpa.LAUNCHES - p0,
+                   bd_kernel_launches=bda.LAUNCHES - b0,
+                   chunks=[int(c) for _, _, c in rep.chunk_history],
+                   graphs=graph_stats(be))
+        checks = [
+            (len(rep.metrics) == a.requests
+             and all(m.n_tokens == a.out for m in rep.metrics),
+             "a request did not complete in full"),
+            (be.kv.free_pages == be.kv.n_pages, "the pool did not drain"),
+            *pool_checks(name, be.kv, run.pop("ptrs"))]
+        if card:
+            checks += [
+                (be.device.type == torch.device(DEVICE).type
+                 and all(t.device == be.device for t in be.params.values())
+                 and all(t.device == be.device
+                         for t in rules.pool_tensors(be.kv)),
+                 "the params or the pool are not on the card"),
+                (be.graphs is not None and be.graphs.replays > 0,
+                 "the backend's graph cache did not replay")]
+        failed.extend(f"{name}: {msg}" for ok, msg in checks if not ok)
+
+    cpa.LAUNCHES = cpa.MERGE_LAUNCHES = bda.LAUNCHES = 0
+    undo = record_gaps(None, {}, steps=steps, rel_tol=FP32_TOL,
+                       sampled=not card)
+    try:
+        res, wall = run_example(f"serve_elastic {device}", se.main, argv,
+                                params=params, on_backend=on_backend,
+                                on_served=on_served)
+    finally:
+        for run in runs.values():           # a run that raised mid-serve
+            if run.get("undo") is not None:
+                run.pop("undo")()
+        undo()
+    launches = {"kernel_launches": cpa.LAUNCHES,
+                "merge_launches": cpa.MERGE_LAUNCHES,
+                "bd_kernel_launches": bda.LAUNCHES}
+    if card:
+        torch.cuda.synchronize()
+    if failed:
+        raise AssertionError(f"serve_elastic_torch on {device}: {failed}")
+    return {"runs": runs, "result": res, "params": host["params"],
+            "wall_s": wall, **launches}
+
+
+def ar_divergence(run, base, what: str) -> dict:
+    """Each request's first AR token where ``run`` and ``base`` differ:
+    up to it both committed the same tokens, so its logits differ only by
+    rounding, and ``base``'s fp32 rule margin there (its recorded
+    ``ar_margins``) must not be below 0."""
+    out, faults = {}, []
+    for rid, want in base["outputs"].items():
+        got = run["outputs"][rid]
+        i = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                 None)
+        if i is None:
+            continue
+        out[rid] = {"index": i, "margin": base["ar_margins"][rid][i]}
+        if out[rid]["margin"] < 0:
+            faults.append((rid, out[rid]))
+    log(f"{what}: first differing token by request {out}")
+    if faults:
+        raise AssertionError(f"{what}: a first differing token breaks the "
+                             f"fp32 rule: {faults}")
+    return out
+
+
+def closest_decision(run) -> float | None:
+    """A base run's largest fp32 rule margin over its decisions (every
+    committed token's top-1/top-2 gap, every uncommitted position's
+    distance from the threshold): at or above 0, rounding within the op
+    tolerance could flip that decision.  A reading."""
+    import numpy as np
+
+    vals = [m for r in run["ar_margins"].values() for m in r.values()]
+    for recs in run["steps"].values():
+        for s in recs:
+            vals += list((s["tol"] - s["gap"])[s["commit"]])
+            unc = ~s["cai"]
+            vals += list(2 * s["tol"][unc] - np.abs(
+                np.log(np.maximum(s["conf"][unc], 1e-300))
+                - np.log(s["threshold"])))
+    return float(max(vals)) if vals else None
+
+
+def example_serve_phase() -> dict:
+    """Phase 18 (i): ``serve_elastic_torch --tight-pool`` on the card at
+    its defaults, then on the CPU from the same params; the AR and fixed-8
+    runs' tokens held by the fp32 rule, the elastic run's chunks logged."""
+    from collections import Counter
+
+    import torch
+
+    se = load_example("serve_elastic")
+    card = serve_example(se, DEVICE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cpu = serve_example(se, "cpu", params=card.pop("params"), base=True)
+    cpu.pop("params")
+    cr, br = card["runs"], cpu["runs"]
+    res = {"card": card, "cpu": cpu, "compare": {}}
+    for name in ("ar", "fixed8"):
+        differ = sum(x != y for rid, want in br[name]["outputs"].items()
+                     for x, y in zip(cr[name]["outputs"][rid], want))
+        what = f"phase 18 (i) serve_elastic {name}, card vs CPU"
+        first = ar_divergence(cr[name], br[name], what) if name == "ar" \
+            else dispatch_divergence(cr[name], br[name], what, rule="fp32")
+        res["compare"][name] = {"tokens_differ": differ, "first": first,
+                                "closest": closest_decision(br[name])}
+        total = sum(map(len, br[name]["outputs"].values()))
+        log(f"{what}: {differ} of {total} committed tokens differ; the CPU "
+            f"run's largest fp32 rule "
+            f"margin over its decisions {res['compare'][name]['closest']}")
+    hist = {side: dict(sorted(Counter(runs["elastic"]["chunks"]).items()))
+            for side, runs in (("card", cr), ("cpu", br))}
+    log(f"phase 18 (i) elastic chunk history (chunk: ticks): card, H100_SXM "
+        f"profile {hist['card']}; CPU, CPU_HOST profile {hist['cpu']}; the "
+        f"same sequence: {cr['elastic']['chunks'] == br['elastic']['chunks']}")
+    tight = card["result"]["tight"]
+    if tight["preemptions"] < 1:
+        raise AssertionError("phase 18 (i): the tight pool did not preempt")
+    if card["kernel_launches"] <= 0:
+        raise AssertionError("phase 18 (i): no paged kernel launch")
+    log(f"phase 18 (i): card {card['wall_s']:.3f} s, CPU {cpu['wall_s']:.3f} "
+        f"s wall; paged launches {card['kernel_launches']} "
+        f"({card['merge_launches']} with a split merge), block-diffusion "
+        f"{card['bd_kernel_launches']}; tight pool {tight['pages']} pages, "
+        f"{tight['preemptions']} preemptions; graphs by run "
+        f"{ {n: r['graphs'] for n, r in cr.items()} }")
+    for side in (card, cpu):
+        for run in side["runs"].values():
+            del run["steps"]
+        side["result"] = {n: {k: v for k, v in r.items() if k != "report"}
+                          for n, r in side["result"].items()}
+    return res
+
+
+def example_quickstart_phase() -> dict:
+    """Phase 18 (ii): ``quickstart_torch`` on the card (60 training steps,
+    then the decode at chunks 2, 4, 8), the kernels' launches counted over
+    it; then each chunk's decode again on the card and on the CPU from the
+    card-trained params, held by the fp32 rule."""
+    import numpy as np
+
+    from repro_torch.kernels import block_diffusion_attn as bda
+    from repro_torch.kernels import chunked_paged_attn as cpa
+
+    qs = load_example("quickstart")
+    cpa.LAUNCHES = cpa.MERGE_LAUNCHES = bda.LAUNCHES = 0
+    out, wall = run_example("quickstart", qs.main,
+                            ["--torch-device", DEVICE])
+    res = {"wall_s": wall, "kernel_launches": cpa.LAUNCHES,
+           "merge_launches": cpa.MERGE_LAUNCHES,
+           "bd_kernel_launches": bda.LAUNCHES, "losses": out["losses"],
+           "decode": out["decode"], "agreement": out["agreement"],
+           "compare": {}}
+    losses = out["losses"]
+    checks = [(losses[59] < losses[19], f"loss at step 60 {losses[59]} is "
+               f"not below step 20's {losses[19]}"),
+              (all(len(out["outputs"][c]) == 32 for c in qs.CHUNKS),
+               "a chunk did not commit 32 tokens"),
+              (res["kernel_launches"] > 0, "no paged kernel launch")]
+    raise_failed("phase 18 (ii) quickstart", checks)
+    model = qs.build_model(qs.CFG)
+    host = {k: v.cpu() for k, v in out["params"].items()}
+    for chunk in qs.CHUNKS:
+        on_card, on_cpu = [], []
+        st_card = qs.decode(model, out["params"], out["prompt"], chunk,
+                            steps=on_card)
+        st_cpu = qs.decode(model, host, out["prompt"], chunk, steps=on_cpu)
+        for s in on_cpu:
+            s["tol"] = FP32_TOL * np.maximum(np.abs(s["top1"]), 1.0)
+        what = f"phase 18 (ii) quickstart decode chunk {chunk}, card vs CPU"
+        first = dispatch_divergence({"steps": {chunk: on_card}},
+                                    {"steps": {chunk: on_cpu}}, what,
+                                    rule="fp32")
+        base = {"ar_margins": {}, "steps": {chunk: on_cpu}}
+        res["compare"][chunk] = {
+            "tokens_differ": sum(x != y for x, y in zip(
+                st_card.output_tokens, st_cpu.output_tokens)),
+            "card_repeat_equal":
+                st_card.output_tokens == out["outputs"][chunk],
+            "first": first, "closest": closest_decision(base)}
+        log(f"{what}: {res['compare'][chunk]}")
+    log(f"phase 18 (ii): {wall:.3f} s wall; losses at 20/40/60 "
+        f"{losses[19]:.4f} / {losses[39]:.4f} / {losses[59]:.4f}; paged "
+        f"launches {res['kernel_launches']} ({res['merge_launches']} with a "
+        f"split merge), block-diffusion {res['bd_kernel_launches']}")
+    return res
+
+
+def example_train_phase(workdir: Path) -> dict:
+    """Phase 18 (iii): ``train_diffusion_lm_torch --full --steps 40``
+    (smollm-135m at full width and depth, fp32, captured): the failure
+    at step 25, the restart from the checkpoint after 20 steps to step 40,
+    and its losses bit-equal to an uninterrupted run resumed from the same
+    checkpoint (run just before the restart, saving nothing)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.training import Trainer
+
+    tl = load_example("train_diffusion_lm")
+    argv = [*EXAMPLE_TRAIN_ARGS, "--ckpt", str(workdir / "example_ckpt"),
+            "--torch-device", DEVICE]
+    seen = {}
+
+    def before_restart(tr):
+        cfg, dc, opt, tc = tl.configs(tl.parse_args(argv))
+        twin = Trainer(cfg, dc, opt, dataclasses.replace(tc, ckpt_every=0),
+                       device=DEVICE)
+        seen["from"] = tr.ckpt.latest_step()
+        seen["losses"], seen["wall_s"] = run_example(
+            "uninterrupted twin", twin.run, resume=True)
+        seen["replays"] = twin.graphs.replays
+        twin.graphs = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()     # what earlier phases left
+    out, wall = run_example("train_diffusion_lm", tl.main, argv,
+                            before_restart=before_restart)
+    peak = torch.cuda.max_memory_allocated()
+    a = tl.parse_args(argv)
+    every = a.steps // 4
+    resume = (a.steps // 2 + 5) // every * every     # the last save before
+    res = {"arch": out["arch"], "failed_at": out["failed_at"],
+           "resumed_from": out["resumed_from"], "losses": out["losses"],
+           "p50_step_ms": out["p50_step_s"] * 1e3,
+           "graph_replays": out["graph_replays"],
+           "max_memory_allocated": peak, "allocated_before": held,
+           "wall_s": wall,
+           "twin": {k: seen.get(k) for k in ("from", "losses", "replays",
+                                             "wall_s")}}
+    checks = [
+        (out["failed_at"] == a.steps // 2 + 5, "the failure was not raised"),
+        (out["resumed_from"] == seen.get("from") == resume,
+         f"resumed from {out['resumed_from']}, not {resume}"),
+        (len(out["losses"]) == a.steps - resume,
+         "the restart did not reach the last step"),
+        (out["losses"] == seen.get("losses"),
+         "the resumed losses differ from the uninterrupted run's"),
+        (out["graph_replays"] and seen["replays"],
+         "the train step did not replay")]
+    log(f"phase 18 (iii) {out['arch']}: failure at step {out['failed_at']}, "
+        f"resumed from {out['resumed_from']}, {len(out['losses'])} steps to "
+        f"{a.steps}; median step {res['p50_step_ms']:.3f} ms; graph replays "
+        f"{out['graph_replays']} (twin {seen['replays']}); "
+        f"max_memory_allocated {peak} B ({peak - held} B above the {held} B "
+        f"allocated before); losses equal to the uninterrupted "
+        f"run's: {out['losses'] == seen.get('losses')}; {wall:.3f} s wall")
+    raise_failed("phase 18 (iii) train_diffusion_lm", checks)
+    return res
+
+
+def example_host_phase() -> dict:
+    """Phase 18 (iv): the host-only twins, for the record."""
+    ss, cs = load_example("scheduler_sim"), load_example("cluster_sim")
+    sched, ws = run_example("scheduler_sim", ss.main,
+                            ["--device", "h100-sxm"])
+    cluster, wc = run_example("cluster_sim", cs.main, [])
+    return {"scheduler_sim": {**sched, "wall_s": ws},
+            "cluster_sim": {**cluster, "wall_s": wc}}
+
+
+def examples_phase() -> dict:
+    """Phase 18: the five example twins driven in-process on the card."""
+    import torch
+
+    t0 = time.perf_counter()
+    res = {"serve": example_serve_phase()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["quickstart"] = example_quickstart_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+    try:
+        res["train"] = example_train_phase(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["host"] = example_host_phase()
+    for k in ("kernel_launches", "merge_launches", "bd_kernel_launches"):
+        res[k] = res["serve"]["card"][k] + res["quickstart"][k]
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"phase 18: {res['wall_s']:.3f} s wall")
+    return res
+
+
 def make_requests(cfg, seed: int, n: int, prompt: tuple, new: tuple):
     import numpy as np
 
@@ -5340,7 +5786,7 @@ def main() -> int:
 
 
 def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
-    """Phases 3-14, then the result lines."""
+    """Phases 3-18, then the result lines."""
     import torch
 
     from repro_torch.configs import get_config
@@ -5533,6 +5979,9 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
     log(f"phase 14: {analysis_res['wall_s']:.3f} s wall")
     a_model = analysis_res["model"]
 
+    log_phase("18: the examples")
+    examples_res = examples_phase()
+
     log_phase("done")
     cluster_runs = cluster_res["runs"] + [cluster_res["drill"]]
     split_runs = split_res["runs"]
@@ -5549,12 +5998,14 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
                         for r in runs + cluster_runs + split_runs)
         + encdec_res["kernel_launches"] + ep_res["model"]["kernel_launches"]
         + a_model["kernel_launches"] + graphs_res["kernel_launches"]
-        + sum(r["kernel_launches"] for r in twins + slot_rows),
+        + sum(r["kernel_launches"] for r in twins + slot_rows)
+        + examples_res["kernel_launches"],
         "merge_launches": sum(r["merge_launches"]
                               for r in runs + cluster_runs + split_runs
                               + twins + slot_rows)
         + encdec_res["merge_launches"] + ep_res["model"]["merge_launches"]
-        + a_model["merge_launches"] + graphs_res["merge_launches"],
+        + a_model["merge_launches"] + graphs_res["merge_launches"]
+        + examples_res["merge_launches"],
         "launches_by_site": {"serving runs": sum(r["kernel_launches"]
                                                  for r in runs),
                              "cluster runs": sum(r["kernel_launches"]
@@ -5572,7 +6023,9 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
                              "captured slot dispatches (phase 16 (i))": sum(
                                  r["kernel_launches"] for r in slot_rows),
                              "eager twins (phases 15, 16)": sum(
-                                 r["kernel_launches"] for r in twins)},
+                                 r["kernel_launches"] for r in twins),
+                             "examples (phase 18)":
+                                 examples_res["kernel_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -5589,7 +6042,8 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
                         for r in runs + cluster_runs + split_runs + twins
                         + slot_rows)
         + encdec_res["bd_kernel_launches"] + a_model["bd_kernel_launches"]
-        + graphs_res["bd_kernel_launches"],
+        + graphs_res["bd_kernel_launches"]
+        + examples_res["bd_kernel_launches"],
         "launches_by_site": {"serving runs": sum(r["bd_kernel_launches"]
                                                  for r in runs),
                              "cluster runs": sum(r["bd_kernel_launches"]
@@ -5605,7 +6059,9 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
                              "captured slot dispatches (phase 16 (i))": sum(
                                  r["bd_kernel_launches"] for r in slot_rows),
                              "eager twins (phases 15, 16)": sum(
-                                 r["bd_kernel_launches"] for r in twins)},
+                                 r["bd_kernel_launches"] for r in twins),
+                             "examples (phase 18)":
+                                 examples_res["bd_kernel_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in bd_rows),
         "ms": bd_rows[0]["ms"], "plain_ms": bd_rows[0]["plain_ms"],
         "bound_ms": bd_rows[0]["bound_ms"],
@@ -5629,7 +6085,7 @@ def run_phases(args, card, build_s, ptxas, dry_proc, dry_dir) -> int:
              "launcher": launcher_res, "encdec_train": enc_train_res,
              "encdec": encdec_res, "analysis": analysis_res,
              "graphs": graphs_res, "slot_graphs": slot_res,
-             "jit_graphs": jit_res}, indent=1))
+             "jit_graphs": jit_res, "examples": examples_res}, indent=1))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

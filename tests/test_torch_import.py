@@ -1,6 +1,6 @@
 """``repro_torch`` stands alone: every module imports with jax blocked, and
-no file of the port (nor ``chip_smoke.py`` or ``chip_ab.py``) imports jax
-or the JAX package."""
+no file of the port (nor ``chip_smoke.py``, ``chip_ab.py`` or the example
+twins ``examples/*_torch.py``) imports jax or the JAX package."""
 
 import ast
 import os
@@ -13,8 +13,11 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
+EXAMPLE_TWINS = [ROOT / "examples" / f"{name}_torch.py" for name in (
+    "quickstart", "scheduler_sim", "serve_elastic", "cluster_sim",
+    "train_diffusion_lm")]
 PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "chip_ab.py"]
+                                         ROOT / "chip_ab.py"] + EXAMPLE_TWINS
 
 
 def _modules():
@@ -77,6 +80,24 @@ def test_no_jax_or_reference_imports(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
             f"{path.relative_to(ROOT)} imports {name}"
+
+
+def test_scheduler_sim_twin_runs_without_jax():
+    """``examples/scheduler_sim_torch.py``'s ``main`` runs with jax and the
+    JAX package blocked."""
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "g = runpy.run_path('examples/scheduler_sim_torch.py')\n"
+            "res = g['main'](['--device', 'h100-sxm'])\n"
+            "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
+            "print('ok', sorted(res['selections'].items()))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "device=h100-sxm" in out.stdout
+    assert "ok [(1, " in out.stdout
 
 
 def test_trains_and_decodes_encdec_on_cpu_without_jax(tmp_path):
