@@ -47,6 +47,7 @@ from repro_torch.models.common import ArchConfig
 from repro_torch.serving.graphs import DispatchGraphs
 from repro_torch.serving.kv_pool import OutOfPages, PagedKVAllocator
 from repro_torch.serving.request import Request
+from repro_torch.serving.telemetry import NULL_TRACER
 from repro_torch.serving.workload import CommitSimulator
 
 
@@ -909,7 +910,25 @@ class ModelBackend:
     T, as the reference retraces per T).  A replay reads the slot cache
     afresh (``_release_slot`` and ``crash_reset`` write it in place), and
     raises if it moved.
+
+    **Spans** (``set_tracer``; the engine hands its tracer over, and a
+    backend used with no engine holds ``NULL_TRACER``): inside the
+    engine's ``engine.step`` the paged path opens ``prefill.plan`` (the
+    plan, COW, tables and padded host arrays), ``prefill.dispatch``,
+    ``prefill.fetch`` (the host's wait on the device), ``prefill.advance``
+    (cursors, first tokens, ``register_prefix``), ``kv.reserve`` (the
+    window's COW and the page reservation), ``decode.window``
+    (``batch_windows``, ``freeze_run``), ``decode.dispatch`` (tables,
+    padding and the dispatch), ``decode.fetch``, ``decode.commit``
+    (``batch_apply_step``, ``advance``, each ``StepInfo``) and
+    ``kv.trim``; the slot path ``slot.prefill``, ``slot.dispatch``,
+    ``slot.fetch`` and ``slot.sample`` (the host's fp64 sampling).  A
+    dispatch span carries its ``batch`` and ``tokens`` and holds the graph
+    cache's ``graph.load``/``graph.replay``/``graph.capture``, or one
+    ``graph.eager`` when nothing is captured.
     """
+
+    tracer = NULL_TRACER
 
     def __init__(self, model, params, n_slots: int = 8, max_len: int = 512,
                  decode_mode: str = "elastic", obs: bool = False,
@@ -999,6 +1018,13 @@ class ModelBackend:
         self.prefix_hit_tokens = 0
         self.graphs = self._graph_cache(graphs)
         self.kv.graphs = self.graphs        # COW copies and swap-ins
+
+    def set_tracer(self, tracer):
+        """Open this backend's spans, and its graph cache's, on
+        ``tracer``."""
+        self.tracer = tracer
+        if self.graphs is not None:
+            self.graphs.tracer = tracer
 
     def _graph_cache(self, graphs):
         """The backend's ``DispatchGraphs`` (None: every dispatch eager);
@@ -1249,8 +1275,9 @@ class ModelBackend:
         set, else run eagerly.  Returns ``fn``'s outputs on the device: a
         paged dispatch's (conf, tok), a slot dispatch's (logits,)."""
         if self.graphs is None:
-            return fn({k: torch.as_tensor(a, device=self.device)
-                       for k, a in host.items()})
+            with self.tracer.span("graph.eager"):
+                return fn({k: torch.as_tensor(a, device=self.device)
+                           for k, a in host.items()})
         key = (kind, host["toks"].shape, self._impl, self.kv_shards)
         return self.graphs.dispatch(key, fn, host)
 
@@ -1294,35 +1321,41 @@ class ModelBackend:
         pool in place.  Only the ``[Bp]`` device-reduced conf/argmax
         scalars come back to the host.  Returns rids that received their
         prefill-derived first token (AR)."""
+        tr = self.tracer
         reqs = list(self._prefill.queue)
         if not reqs:
             return set()
-        B = len(reqs)
-        Bp = self._bucket(B)
-        Tp = self._bucket(max(r.prompt_len for r in reqs))
-        toks = np.zeros((Bp, Tp), np.int64)
-        lens = np.zeros(Bp, np.int32)
-        tables = np.zeros((Bp, self._table_width), np.int32)
-        tables[:B] = self.kv.batch_tables([r.rid for r in reqs],
-                                          self._table_width)
-        for i, r in enumerate(reqs):
-            toks[i, :r.prompt_len] = np.asarray(r.prompt_tokens)
-            lens[i] = r.prompt_len
-        conf, tok = self._dispatch("wave", self._wave, toks=toks, lens=lens,
-                                   tables=tables)
-        self.prefill_dispatches += 1
-        # wave prefill never reads the paged prefix (scatter only)
-        self.device_dispatches += self.kv_shards
-        conf, tok = self._to_host(conf, tok)
-        fresh = set()
-        for i, r in enumerate(reqs):
-            self._prefill.advance(r.rid, r.prompt_len)
-            st = self._states[r.rid]
-            if isinstance(st, ARState):
-                st.commit(int(tok[i]))
-                fresh.add(r.rid)
-        self.prefill_tokens_history.append(sum(r.prompt_len for r in reqs))
-        self.last_prefill_plan = [(r.rid, 0, r.prompt_len) for r in reqs]
+        with tr.span("prefill.plan"):
+            B = len(reqs)
+            Bp = self._bucket(B)
+            Tp = self._bucket(max(r.prompt_len for r in reqs))
+            toks = np.zeros((Bp, Tp), np.int64)
+            lens = np.zeros(Bp, np.int32)
+            tables = np.zeros((Bp, self._table_width), np.int32)
+            tables[:B] = self.kv.batch_tables([r.rid for r in reqs],
+                                              self._table_width)
+            for i, r in enumerate(reqs):
+                toks[i, :r.prompt_len] = np.asarray(r.prompt_tokens)
+                lens[i] = r.prompt_len
+        n_tokens = sum(r.prompt_len for r in reqs)
+        with tr.span("prefill.dispatch", batch=B, tokens=n_tokens):
+            conf, tok = self._dispatch("wave", self._wave, toks=toks,
+                                       lens=lens, tables=tables)
+            self.prefill_dispatches += 1
+            # wave prefill never reads the paged prefix (scatter only)
+            self.device_dispatches += self.kv_shards
+        with tr.span("prefill.fetch"):
+            conf, tok = self._to_host(conf, tok)
+        with tr.span("prefill.advance"):
+            fresh = set()
+            for i, r in enumerate(reqs):
+                self._prefill.advance(r.rid, r.prompt_len)
+                st = self._states[r.rid]
+                if isinstance(st, ARState):
+                    st.commit(int(tok[i]))
+                    fresh.add(r.rid)
+            self.prefill_tokens_history.append(n_tokens)
+            self.last_prefill_plan = [(r.rid, 0, r.prompt_len) for r in reqs]
         return fresh
 
     def _chunked_prefill_tick(self, live_bc: int = 0) -> set:
@@ -1330,47 +1363,54 @@ class ModelBackend:
         of prefill cursors (FCFS, page-aligned chunk ends).  Returns rids
         whose prompt completed this tick AND received their
         prefill-derived first token (AR)."""
-        plan = self._prefill.plan(live_bc)
-        if not plan:
-            return set()
-        if self.prefix_cache:
-            # COW before the chunk write can land in a shared page
-            for req, off, n in plan:
-                self.kv.ensure_private(req.rid, off, off + n)
-        B = len(plan)
-        Bp = self._bucket(B)
-        Tp = self._bucket(max(n for _, _, n in plan))
-        toks = np.zeros((Bp, Tp), np.int64)
-        offs = np.zeros(Bp, np.int64)
-        val = np.zeros(Bp, np.int64)
-        tables = np.zeros((Bp, self._table_width), np.int32)
-        tables[:B] = self.kv.batch_tables([req.rid for req, _, _ in plan],
-                                          self._table_width)
-        for i, (req, off, n) in enumerate(plan):
-            toks[i, :n] = np.asarray(req.prompt_tokens[off:off + n])
-            offs[i] = off
-            val[i] = n
-        conf, tok = self._dispatch(
-            "chunk", self._chunk, toks=toks, offs=offs, valid=val,
-            tables=tables,
-            **self._shard_offs([req.rid for req, _, _ in plan], Bp))
-        self.prefill_dispatches += 1
-        self._account_device_dispatch(Bp, Tp)
-        conf, tok = self._to_host(conf, tok)
-        fresh = set()
-        for i, (req, off, n) in enumerate(plan):
-            if self._prefill.advance(req.rid, n):
-                st = self._states[req.rid]
-                if isinstance(st, ARState):
-                    st.commit(int(tok[i]))
-                    fresh.add(req.rid)
-                if self.prefix_cache:
-                    # the prompt's pages now hold exactly the KV a fresh
-                    # prefill would write — index them for reuse
-                    self.kv.register_prefix(req.rid, req.prompt_tokens,
-                                            limit=req.prompt_len)
-        self.prefill_tokens_history.append(sum(n for _, _, n in plan))
-        self.last_prefill_plan = [(req.rid, off, n) for req, off, n in plan]
+        tr = self.tracer
+        with tr.span("prefill.plan"):
+            plan = self._prefill.plan(live_bc)
+            if not plan:
+                return set()
+            if self.prefix_cache:
+                # COW before the chunk write can land in a shared page
+                for req, off, n in plan:
+                    self.kv.ensure_private(req.rid, off, off + n)
+            B = len(plan)
+            Bp = self._bucket(B)
+            Tp = self._bucket(max(n for _, _, n in plan))
+            toks = np.zeros((Bp, Tp), np.int64)
+            offs = np.zeros(Bp, np.int64)
+            val = np.zeros(Bp, np.int64)
+            tables = np.zeros((Bp, self._table_width), np.int32)
+            tables[:B] = self.kv.batch_tables(
+                [req.rid for req, _, _ in plan], self._table_width)
+            for i, (req, off, n) in enumerate(plan):
+                toks[i, :n] = np.asarray(req.prompt_tokens[off:off + n])
+                offs[i] = off
+                val[i] = n
+        n_tokens = sum(n for _, _, n in plan)
+        with tr.span("prefill.dispatch", batch=B, tokens=n_tokens):
+            conf, tok = self._dispatch(
+                "chunk", self._chunk, toks=toks, offs=offs, valid=val,
+                tables=tables,
+                **self._shard_offs([req.rid for req, _, _ in plan], Bp))
+            self.prefill_dispatches += 1
+            self._account_device_dispatch(Bp, Tp)
+        with tr.span("prefill.fetch"):
+            conf, tok = self._to_host(conf, tok)
+        with tr.span("prefill.advance"):
+            fresh = set()
+            for i, (req, off, n) in enumerate(plan):
+                if self._prefill.advance(req.rid, n):
+                    st = self._states[req.rid]
+                    if isinstance(st, ARState):
+                        st.commit(int(tok[i]))
+                        fresh.add(req.rid)
+                    if self.prefix_cache:
+                        # the prompt's pages now hold exactly the KV a
+                        # fresh prefill would write — index them for reuse
+                        self.kv.register_prefix(req.rid, req.prompt_tokens,
+                                                limit=req.prompt_len)
+            self.prefill_tokens_history.append(n_tokens)
+            self.last_prefill_plan = [(req.rid, off, n)
+                                      for req, off, n in plan]
         return fresh
 
     def _prefill_tick(self, live_bc: int = 0) -> set:
@@ -1382,13 +1422,21 @@ class ModelBackend:
         return self._chunked_prefill_tick(live_bc)
 
     def telemetry_counters(self) -> dict:
-        """Cumulative counters the tracer samples once per tick."""
+        """Cumulative counters the tracer samples once per tick; with a
+        graph cache, its captures, the host seconds they took (the
+        set-up's included) and its replays."""
+        g = self.graphs
+        graphs = {} if g is None else {
+            "graph_captures": len(g.entries), "graph_capture_s": g.capture_s,
+            "graph_replays": g.replays}
         if not self.paged:
             return {"decode_dispatches": self.decode_dispatches,
                     "prefill_dispatches": self.prefill_dispatches,
-                    "host_transfer_bytes": self.host_transfer_bytes}
+                    "host_transfer_bytes": self.host_transfer_bytes,
+                    **graphs}
         ks = self.kv.stats
-        return {"decode_dispatches": self.decode_dispatches,
+        return {**graphs,
+                "decode_dispatches": self.decode_dispatches,
                 "prefill_dispatches": self.prefill_dispatches,
                 "host_transfer_bytes": self.host_transfer_bytes,
                 "device_dispatches": self.device_dispatches,
@@ -1415,60 +1463,72 @@ class ModelBackend:
         / valid 0) and returns host (conf [B, c], tok [B, c]).  ONE fused
         dispatch (``model.decode_step_paged``) runs chunk-forward + freeze
         + on-device sampling on the pool in place, and only ``2·Bp·c``
-        scalars come back.
+        scalars come back.  The ``decode.dispatch`` span holds the tables
+        and padding with the dispatch.
         """
         B, c = win.shape
         Bp = self._bucket(B)
-        tables = np.zeros((Bp, self._table_width), np.int32)
-        tables[:B] = self.kv.batch_tables(rids, self._table_width)
-        w = np.full((Bp, c), self.cfg.mask_token_id, np.int64)
-        w[:B] = win
-        s = np.zeros(Bp, np.int64)
-        s[:B] = start
-        v = np.zeros(Bp, np.int64)
-        v[:B] = valid
-        a = np.zeros(Bp, np.int64)
-        a[:B] = n_adv
-        conf, tok = self._dispatch("decode", self._decode, toks=w, start=s,
-                                   valid=v, tables=tables, n_adv=a,
-                                   **self._shard_offs(rids, Bp))
-        self.decode_dispatches += 1
-        self._account_device_dispatch(Bp, c)
-        conf, tok = self._to_host(conf, tok)
+        tr = self.tracer
+        with tr.span("decode.dispatch", batch=B, tokens=int(np.sum(valid))):
+            tables = np.zeros((Bp, self._table_width), np.int32)
+            tables[:B] = self.kv.batch_tables(rids, self._table_width)
+            w = np.full((Bp, c), self.cfg.mask_token_id, np.int64)
+            w[:B] = win
+            s = np.zeros(Bp, np.int64)
+            s[:B] = start
+            v = np.zeros(Bp, np.int64)
+            v[:B] = valid
+            a = np.zeros(Bp, np.int64)
+            a[:B] = n_adv
+            conf, tok = self._dispatch("decode", self._decode, toks=w,
+                                       start=s, valid=v, tables=tables,
+                                       n_adv=a, **self._shard_offs(rids, Bp))
+            self.decode_dispatches += 1
+            self._account_device_dispatch(Bp, c)
+        with tr.span("decode.fetch"):
+            conf, tok = self._to_host(conf, tok)
         return conf[:B], tok[:B].astype(np.int64)
 
     def _step_ar_paged(self, ar_rids, infos):
         """AR decode over the page pool: c=1 window at the last committed
         token, prefix = everything before it; the input token's KV freezes
         into the pool every step (n_adv = 1)."""
+        tr = self.tracer
         states = [self._states[rid] for rid in ar_rids]
         B = len(states)
-        win = np.empty((B, 1), np.int64)
-        start = np.empty(B, np.int64)
-        for i, st in enumerate(states):
-            win[i, 0] = st.committed[st.frozen - 1]
-            start[i] = st.prompt_len + st.frozen - 1
-        ones = np.ones(B, np.int64)
+        with tr.span("decode.window"):
+            win = np.empty((B, 1), np.int64)
+            start = np.empty(B, np.int64)
+            for i, st in enumerate(states):
+                win[i, 0] = st.committed[st.frozen - 1]
+                start[i] = st.prompt_len + st.frozen - 1
+            ones = np.ones(B, np.int64)
         _, tok = self._dispatch_window(ar_rids, win, start, ones, ones)
-        for i, (rid, st) in enumerate(zip(ar_rids, states)):
-            st.commit(int(tok[i, 0]))
-            infos[rid] = StepInfo(1, np.ones(1, bool), 1, st.done)
+        with tr.span("decode.commit"):
+            for i, (rid, st) in enumerate(zip(ar_rids, states)):
+                st.commit(int(tok[i, 0]))
+                infos[rid] = StepInfo(1, np.ones(1, bool), 1, st.done)
 
     def _step_diffusion_paged(self, diff_rids, chunk, infos):
+        tr = self.tracer
         states = [self._states[rid] for rid in diff_rids]
-        win, start, valid, cai = batch_windows(states, chunk)
-        # the freeze run is known before the step (leading committed-at-
-        # input positions) — this is what makes the fused freeze possible
-        n_adv = freeze_run(valid, cai)
+        with tr.span("decode.window"):
+            win, start, valid, cai = batch_windows(states, chunk)
+            # the freeze run is known before the step (leading committed-
+            # at-input positions) — this is what makes the fused freeze
+            # possible
+            n_adv = freeze_run(valid, cai)
         conf, tok = self._dispatch_window(diff_rids, win, start, valid,
                                           n_adv)
-        commit, n_adv_post = batch_apply_step(states, conf, tok, valid, cai)
-        # invariant: commits this step can never clamp the pre-step run
-        assert (n_adv_post == n_adv).all(), (n_adv_post, n_adv)
-        for i, (rid, st) in enumerate(zip(diff_rids, states)):
-            st.advance(int(n_adv_post[i]))
-            infos[rid] = StepInfo(int(commit[i].sum()), commit[i],
-                                  int(valid[i]), st.done)
+        with tr.span("decode.commit"):
+            commit, n_adv_post = batch_apply_step(states, conf, tok, valid,
+                                                  cai)
+            # invariant: commits this step can never clamp the pre-step run
+            assert (n_adv_post == n_adv).all(), (n_adv_post, n_adv)
+            for i, (rid, st) in enumerate(zip(diff_rids, states)):
+                st.advance(int(n_adv_post[i]))
+                infos[rid] = StepInfo(int(commit[i].sum()), commit[i],
+                                      int(valid[i]), st.done)
 
     def _split_ar(self, rids, infos):
         """Partition rids into (live AR, diffusion); AR requests already
@@ -1495,27 +1555,30 @@ class ModelBackend:
         ready = [r for r in rids if not self._prefill.pending(r)]
         ar_rids, diff_rids = self._split_ar(ready, infos)
         live = ar_rids + diff_rids
-        if self.prefix_cache:
-            # COW any shared page the worst-case window can touch before
-            # the dispatch writes the pool in place
-            for r in live:
-                st = self._states[r]
-                if st.done:
-                    continue
-                lo = st.prompt_len + st.frozen
-                if isinstance(st, ARState):
-                    lo -= 1
-                self.kv.ensure_private(r, lo, _worst_step_len(st, chunk))
         if live:
-            # worst-case page reservation; transactional OutOfPages
-            # (nothing mutated yet) lets the engine preempt + retry
-            _reserve_step(self.kv, self._states, live, chunk)
+            with self.tracer.span("kv.reserve"):
+                if self.prefix_cache:
+                    # COW any shared page the worst-case window can touch
+                    # before the dispatch writes the pool in place
+                    for r in live:
+                        st = self._states[r]
+                        if st.done:
+                            continue
+                        lo = st.prompt_len + st.frozen
+                        if isinstance(st, ARState):
+                            lo -= 1
+                        self.kv.ensure_private(r, lo,
+                                               _worst_step_len(st, chunk))
+                # worst-case page reservation; transactional OutOfPages
+                # (nothing mutated yet) lets the engine preempt + retry
+                _reserve_step(self.kv, self._states, live, chunk)
         if ar_rids:
             self._step_ar_paged(ar_rids, infos)
         if diff_rids:
             self._step_diffusion_paged(diff_rids, chunk, infos)
         if live:
-            _trim_step(self.kv, self._states, live)
+            with self.tracer.span("kv.trim"):
+                _trim_step(self.kv, self._states, live)
         for r in rids:                    # still-prefilling: idle info
             if r not in infos:
                 infos[r] = StepInfo(0, np.zeros(1, bool), 0, False)
@@ -1570,19 +1633,24 @@ class ModelBackend:
         one ``slot_prefill`` dispatch whatever the slot or prompt length.
         An AR request commits its first token from the last prompt
         position's logits, sampled on the host."""
+        tr = self.tracer
         slot = self._free_slots.pop()
         self._slot_of[req.rid] = slot
         toks = np.zeros(self.max_len, np.int64)
         pt = np.asarray(req.prompt_tokens, np.int64)
         toks[:len(pt)] = pt
-        (logits,) = self._dispatch(
-            "slot_prefill", self._slot_prefill, toks=toks,
-            lens=np.array([req.prompt_len], np.int32),
-            slot=np.array([slot], np.int64))
+        with tr.span("slot.prefill", batch=1, tokens=req.prompt_len):
+            (logits,) = self._dispatch(
+                "slot_prefill", self._slot_prefill, toks=toks,
+                lens=np.array([req.prompt_len], np.int32),
+                slot=np.array([slot], np.int64))
         st = self._states[req.rid]
         if isinstance(st, ARState):
-            _, tok = softmax_confidence(self._fetch(logits))
-            st.commit(int(tok))
+            with tr.span("slot.fetch"):
+                logits = self._fetch(logits)
+            with tr.span("slot.sample"):
+                _, tok = softmax_confidence(logits)
+                st.commit(int(tok))
 
     def _release_slot(self, rid: int):
         """Free a slot: zero its ``len`` and its recurrent states (the fresh
@@ -1609,14 +1677,19 @@ class ModelBackend:
                 self._req[rid].prompt_tokens[-1]
             lens[slot] = 1
             mask[slot] = True
-        (logits,) = self._dispatch("advance", self._advance, toks=toks,
-                                   lens=lens, mask=mask)
-        logits = self._fetch(logits)
-        for rid in ar_rids:
-            st = self._states[rid]
-            _, tok = softmax_confidence(logits[self._slot_of[rid], 0])
-            st.commit(int(tok))
-            infos[rid] = StepInfo(1, np.ones(1, bool), 1, st.done)
+        tr = self.tracer
+        with tr.span("slot.dispatch", batch=len(ar_rids),
+                     tokens=len(ar_rids)):
+            (logits,) = self._dispatch("advance", self._advance, toks=toks,
+                                       lens=lens, mask=mask)
+        with tr.span("slot.fetch"):
+            logits = self._fetch(logits)
+        with tr.span("slot.sample"):
+            for rid in ar_rids:
+                st = self._states[rid]
+                _, tok = softmax_confidence(logits[self._slot_of[rid], 0])
+                st.commit(int(tok))
+                infos[rid] = StepInfo(1, np.ones(1, bool), 1, st.done)
 
     def _step_slots(self, rids):
         """One tick of the recurrent-slot families: AR steps (ssm), then the
@@ -1646,21 +1719,26 @@ class ModelBackend:
             meta[rid] = (cai, v)
         # the window's logits reach the host before a block commit replays
         # (graphs.py: one memory pool a backend)
-        (logits,) = self._dispatch("window", self._window, toks=win,
-                                   start=start, valid=valid)
-        logits = self._fetch(logits)
+        tr = self.tracer
+        with tr.span("slot.dispatch", batch=len(diff_rids),
+                     tokens=int(valid.sum())):
+            (logits,) = self._dispatch("window", self._window, toks=win,
+                                       start=start, valid=valid)
+        with tr.span("slot.fetch"):
+            logits = self._fetch(logits)
 
         block_commits = []
-        for rid in diff_rids:
-            st = self._states[rid]
-            slot = self._slot_of[rid]
-            cai, v = meta[rid]
-            conf, tok = softmax_confidence(logits[slot, :c])
-            commit_mask, n_adv = st.apply_step(conf, tok, v, cai)
-            if n_adv > 0:
-                block_commits.append((rid, slot, n_adv))
-            infos[rid] = StepInfo(int(commit_mask.sum()), commit_mask, v,
-                                  st.done)
+        with tr.span("slot.sample"):
+            for rid in diff_rids:
+                st = self._states[rid]
+                slot = self._slot_of[rid]
+                cai, v = meta[rid]
+                conf, tok = softmax_confidence(logits[slot, :c])
+                commit_mask, n_adv = st.apply_step(conf, tok, v, cai)
+                if n_adv > 0:
+                    block_commits.append((rid, slot, n_adv))
+                infos[rid] = StepInfo(int(commit_mask.sum()), commit_mask, v,
+                                      st.done)
 
         for rid, slot, n_adv in block_commits:
             st = self._states[rid]
@@ -1672,7 +1750,8 @@ class ModelBackend:
             lens[slot] = n_adv
             mask[slot] = True
             # T = n_adv unpadded; the logits are never fetched
-            self._dispatch("advance", self._advance, toks=toks, lens=lens,
-                           mask=mask)
+            with tr.span("slot.dispatch", batch=1, tokens=n_adv):
+                self._dispatch("advance", self._advance, toks=toks,
+                               lens=lens, mask=mask)
             st.advance(n_adv)
         return infos

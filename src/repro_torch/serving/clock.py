@@ -20,6 +20,11 @@ class VirtualClock:
     def advance_to(self, t: float):
         self.t = max(self.t, t)
 
+    def took(self, t0: float, dt: float) -> float:
+        """How long work begun at ``t0`` took: the ``dt`` the clock was just
+        advanced by (returned as given, not ``now - t0``, which rounds)."""
+        return dt
+
 
 class WallClock:
     """Real time; ``advance`` is a no-op (work itself takes the time)."""
@@ -36,3 +41,8 @@ class WallClock:
     def advance_to(self, t: float):
         while self.now() < t:
             time.sleep(min(0.001, t - self.now()))
+
+    def took(self, t0: float, dt: float) -> float:
+        """How long work begun at ``t0`` took: the time since, whatever the
+        work reported (``dt``)."""
+        return self.now() - t0

@@ -91,6 +91,10 @@ class EngineCore:
         # calls tracer.tick()/tracer.req() unconditionally — no scattered
         # `if tracing:` branches (see repro_torch.serving.telemetry).
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        # the backend's model step and graph cache open their spans on it
+        set_tracer = getattr(backend, "set_tracer", None)
+        if set_tracer is not None:
+            set_tracer(self.tracer)
         self.replica = 0            # cluster factories stamp the index
         # Starvation guard: victim selection skips requests that already
         # ate ``preemption_cap`` evictions (each eviction discards all
@@ -229,13 +233,15 @@ class EngineCore:
         self._steps += 1
         if self._steps > self.max_steps:
             raise RuntimeError("engine exceeded max_steps")
-        now = self.clock.now()
-        self._admit(now)
-        if not self._active:
-            if self._pending:
-                self.clock.advance_to(self._earliest_arrival())
-            return True
-        self._decode_once()
+        self.tracer.bind(self.clock, self.replica, self._steps)
+        with self.tracer.span("engine.tick"):
+            now = self.clock.now()
+            self._admit(now)
+            if not self._active:
+                if self._pending:
+                    self.clock.advance_to(self._earliest_arrival())
+                return True
+            self._decode_once()
         return True
 
     def drain(self):
@@ -270,31 +276,38 @@ class EngineCore:
                     or not self._growth_headroom_ok(self._pending[i]):
                 break
             req = self._pending.pop(i)
-            self._arrival_untrack(req.arrival_time)
-            m = self._metrics.get(req.rid)
-            if m is None:
-                m = RequestMetrics(req.rid, req.arrival_time)
-                self._metrics[req.rid] = m
-            m.admit_time = now
-            self._failover.discard(req.rid)
-            self.tracer.req("admit", req.rid, now, self.replica,
-                            wait=now - req.arrival_time,
-                            n_preempts=m.preemptions)
-            prefill_lat = self.backend.admit(req) * self._slow_mult()
-            self.clock.advance(prefill_lat)
-            self._busy += prefill_lat
-            now = self.clock.now()
-            st = self.backend.state(req.rid)
-            if st.n_committed > 0 and m.first_token_time < 0:
-                # recurrent-slot AR: prefill runs synchronously inside this
-                # tick and commits the first token at admit.  Deferred
-                # (paged) backends commit nothing here — their stamp comes
-                # from the StepInfo of the tick the last prefill chunk
-                # completes.
-                m.first_token_time = now
-                m.last_token_time = now
-                self.tracer.req("first_token", req.rid, now, self.replica)
-            self._active.append(req)
+            with self.tracer.span("engine.admit", rid=req.rid):
+                now = self._admit_one(req, now)
+
+    def _admit_one(self, req: Request, now: float) -> float:
+        """Admit ``req`` at ``now``; returns the clock after."""
+        self._arrival_untrack(req.arrival_time)
+        m = self._metrics.get(req.rid)
+        if m is None:
+            m = RequestMetrics(req.rid, req.arrival_time)
+            self._metrics[req.rid] = m
+        m.admit_time = now
+        self._failover.discard(req.rid)
+        self.tracer.req("admit", req.rid, now, self.replica,
+                        wait=now - req.arrival_time,
+                        n_preempts=m.preemptions)
+        t0 = self.clock.now()
+        prefill_lat = self.backend.admit(req) * self._slow_mult()
+        self.clock.advance(prefill_lat)
+        self._busy += self.clock.took(t0, prefill_lat)
+        now = self.clock.now()
+        st = self.backend.state(req.rid)
+        if st.n_committed > 0 and m.first_token_time < 0:
+            # recurrent-slot AR: prefill runs synchronously inside this
+            # tick and commits the first token at admit.  Deferred
+            # (paged) backends commit nothing here — their stamp comes
+            # from the StepInfo of the tick the last prefill chunk
+            # completes.
+            m.first_token_time = now
+            m.last_token_time = now
+            self.tracer.req("first_token", req.rid, now, self.replica)
+        self._active.append(req)
+        return now
 
     # -- memory preemption (OutOfPages pressure relief) --------------------
     def _kv_utilization(self):
@@ -366,6 +379,39 @@ class EngineCore:
         return fn() if fn is not None else 0
 
     def _decode_once(self):
+        tr = self.tracer
+        with tr.span("engine.select"):
+            chunk = self._select()
+        t0 = self.clock.now()
+        with tr.span("engine.step"):
+            while True:
+                rids = [r.rid for r in self._active]
+                try:
+                    latency, infos = self.backend.decode_step(rids, chunk)
+                    break
+                except OutOfPages:
+                    # decode_step reserves before mutating, so the step
+                    # never partially ran — preempt a victim and retry it
+                    if not self._preempt_for_memory():
+                        raise
+        latency *= self._slow_mult()
+        b = len(self._active)
+        self.clock.advance(latency)
+        # the step's duration on the engine's clock: the backend's latency
+        # on a virtual clock, the time it took on a wall clock
+        dur = self.clock.took(t0, latency)
+        self._busy += dur
+        now = self.clock.now()
+        if self._first_decode_t is None:
+            self._first_decode_t = now - dur
+        self._chunk_hist.append((now, b, chunk))
+        self._batch_hist.append(b)
+        with tr.span("engine.commit"):
+            commits = self._commit(infos, now)
+        tr.tick(self, now - dur, dur, b, chunk, commits)
+
+    def _select(self) -> int:
+        """This tick's chunk, with the pool's room for it made."""
         # b = the batch the decode dispatch will actually run: mid-prefill
         # requests are active but sit chunked-mode dispatches out — their
         # load reaches the scheduler through prefill_tokens, not b (double-
@@ -389,26 +435,11 @@ class EngineCore:
                 except TypeError:   # ... or the memory signal
                     chunk = self.scheduler.select(b)
         self._ensure_step_capacity(chunk)
-        while True:
-            rids = [r.rid for r in self._active]
-            try:
-                latency, infos = self.backend.decode_step(rids, chunk)
-                break
-            except OutOfPages:
-                # decode_step reserves before mutating, so the step never
-                # partially ran — preempt a victim and retry it
-                if not self._preempt_for_memory():
-                    raise
-        latency *= self._slow_mult()
-        b = len(self._active)
-        self.clock.advance(latency)
-        self._busy += latency
-        now = self.clock.now()
-        if self._first_decode_t is None:
-            self._first_decode_t = now - latency
-        self._chunk_hist.append((now, b, chunk))
-        self._batch_hist.append(b)
+        return chunk
 
+    def _commit(self, infos, now: float) -> int:
+        """Stamp the step's commits at ``now``, retire finished requests
+        and feed the scheduler; returns the tokens committed."""
         commit_masks, valids = [], []
         still_active = []
         commits = 0
@@ -449,7 +480,7 @@ class EngineCore:
                 still_active.append(req)
         self._active = still_active
         self.scheduler.observe(commit_masks, valids)
-        self.tracer.tick(self, now - latency, latency, b, chunk, commits)
+        return commits
 
     # -- fault injection / failover support --------------------------------
     def _slow_mult(self) -> float:

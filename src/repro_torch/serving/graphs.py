@@ -56,6 +56,13 @@ Invariants:
   capture back out and adds it again on every replay, so they count
   launches, replayed or not.
 
+Spans (``tracer``: ``NULL_TRACER`` until a backend's engine hands its
+own over): ``graph.load`` stages a call's static inputs, ``graph.replay``
+runs from the replay's enqueue (where the dispatch's device work starts)
+and ``graph.capture`` holds a new key's warm run and capture, with the
+key.  Whatever the tracer, the cache counts its replays and the host
+seconds its captures took (``capture_s``, warm runs included).
+
 The capturer is injectable: :class:`CudaCapturer` on the card;
 :class:`RerunCapturer` on the CPU (tests, the analyzer), a stand-in that
 captures nothing and re-runs the dispatch on the static inputs at every
@@ -74,6 +81,8 @@ from repro_torch.distributed import collectives
 from repro_torch.kernels import block_diffusion_attn as bda
 from repro_torch.kernels import chunked_paged_attn as cpa
 from repro_torch.models import moe
+from repro_torch.serving.clock import WallClock
+from repro_torch.serving.telemetry import NULL_TRACER
 
 # the counters that add to themselves when a wrapper is traced
 _COUNTERS = ((cpa, "LAUNCHES"), (cpa, "MERGE_LAUNCHES"), (bda, "LAUNCHES"),
@@ -208,6 +217,8 @@ class DispatchGraphs:
     ``pool_ptrs()`` gives the pool's ``data_ptr``\\ s now; ``capturer``
     defaults to :class:`CudaCapturer` on ``device``."""
 
+    tracer = NULL_TRACER
+
     def __init__(self, device, pool_ptrs, capturer=None):
         self.device = torch.device(device)
         self.pool_ptrs = pool_ptrs
@@ -215,6 +226,8 @@ class DispatchGraphs:
             else CudaCapturer(self.device)
         self.entries: dict = {}
         self.replays = 0
+        self.capture_s = 0.0        # host seconds in _first, cumulative
+        self._host_clock = WallClock()
 
     def dispatch(self, key, fn, host: dict) -> tuple:
         """Run the dispatch of ``key`` on the inputs ``host`` (name → numpy
@@ -222,18 +235,26 @@ class DispatchGraphs:
         any torch dtype, on the host or the device): ``fn(t)``, with ``t``
         the static inputs by name, returns its output tensors.  Returns
         those outputs, on the device."""
+        tr = self.tracer
         e = self.entries.get(key)
         if e is None:
-            return self._first(key, fn, host)
+            with tr.span("graph.capture", key=repr(key)):
+                t0 = self._host_clock.now()
+                try:
+                    return self._first(key, fn, host)
+                finally:
+                    self.capture_s += self._host_clock.now() - t0
         ptrs = self.pool_ptrs()
         if ptrs != e.ptrs:
             raise RuntimeError(f"graph {key}: the pool moved since "
                                f"capture ({e.ptrs} → {ptrs}); a replay "
                                f"would write the old storage")
-        self._load(e.static, host)
-        e.replay()
-        _add(e.delta)
-        self.replays += 1
+        with tr.span("graph.load"):
+            self._load(e.static, host)
+        with tr.span("graph.replay"):
+            e.replay()
+            _add(e.delta)
+            self.replays += 1
         return e.outputs
 
     def _load(self, static: dict, host: dict):

@@ -34,6 +34,20 @@ Event kinds
             and pages freed.
 ``route`` / ``spill`` / ``reject`` — cluster-tier placement decisions.
 
+``span``  — a host span, in a ring of its own: name, start, end, the span
+            it nests in, the engine tick and replica, and its arguments
+            (an admission's ``rid``, a dispatch's ``batch`` and
+            ``tokens``).  :class:`EngineCore` opens one per layer boundary
+            (``engine.tick`` holding ``engine.admit``, ``engine.select``,
+            ``engine.step`` and ``engine.commit``) and hands the tracer to
+            the backend, whose model step (``prefill.*``, ``decode.*``,
+            ``kv.*``, ``slot.*``) and graph cache (``graph.*``) open theirs
+            inside ``engine.step``.  Spans are timed on the engine's clock,
+            which :meth:`Tracer.bind` sets each tick; while a
+            ``torch.profiler`` session records, each span is also a
+            ``record_function`` range of the same name, on the profiler's
+            clock beside the device's kernels.
+
 Exporters: :meth:`Tracer.to_jsonl` (one JSON object per line; the analyzer
 CLI ``python -m repro_torch.launch.trace_view`` consumes this) and
 :meth:`Tracer.to_perfetto` (Chrome ``trace_event`` JSON loadable in
@@ -43,9 +57,11 @@ request async spans, and counter tracks for ``kv_util``, ``bc``,
 ``dispatches``, ``max_itl``, the prefix-cache / tiered-KV series
 (``prefix_hits``/``prefix_misses``/``prefix_hit_tokens``,
 ``pages_shared``, ``cow_copies``, ``swap_in_bytes``/``swap_out_bytes``),
-and — for sharded page pools — per-device
+the graph cache's ``graph_captures`` / ``graph_capture_s`` /
+``graph_replays``, and — for sharded page pools — per-device
 ``device_dispatches`` / ``collective_bytes`` plus one
-``pages_in_use/shard<i>`` track per KV shard).
+``pages_in_use/shard<i>`` track per KV shard; spans are nested ``X``
+events on a ``host spans`` thread).  The JSONL holds no spans.
 :func:`validate_trace_events` is an in-repo catapult-format checker used
 by CI's trace smoke job.
 """
@@ -53,16 +69,43 @@ by CI's trace smoke job.
 from __future__ import annotations
 
 import json
+import sys
 from collections import deque
+
+from repro_torch.serving.clock import WallClock
+
+
+class _NullSpan:
+    """The null tracer's one span: enters and leaves, records nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
 
 
 class NullTracer:
     """No-op tracer: the default wired into every engine.  Every method is
-    an empty body so the untraced hot path costs one attribute lookup and
-    one no-op call per instrumentation point (measured in
-    ``benchmarks/telemetry_overhead.py``)."""
+    an empty body, and ``span`` hands back one preallocated no-op context
+    (no clock read, no span object), so the untraced hot path costs one
+    attribute lookup and one no-op call per instrumentation point and one
+    ``with`` per span.  Measured on the H100 by untraced benchmark runs of
+    this code against the code before the spans, in turns (PERF.md,
+    section 6: "Cost")."""
 
     enabled = False
+
+    def span(self, name, **args):
+        return _NULL_SPAN
+
+    def bind(self, clock, replica=0, tick=0):
+        pass
 
     def tick(self, core, t0, dur, b, chunk, commits=0):
         pass
@@ -105,7 +148,53 @@ COUNTER_FIELDS = ("kv_util", "bc", "prefill_backlog", "pages_in_use",
                   # host-tier swap traffic in bytes
                   "prefix_hits", "prefix_misses", "prefix_hit_tokens",
                   "pages_shared", "cow_copies", "swap_in_bytes",
-                  "swap_out_bytes")
+                  "swap_out_bytes",
+                  # the graph cache: graphs captured, host seconds spent
+                  # capturing them (warm run included), replays
+                  "graph_captures", "graph_capture_s", "graph_replays")
+
+
+def _profiler_range(name: str):
+    """An entered ``record_function`` range named ``name`` while a
+    ``torch.profiler`` session records, else None.  No session can record
+    in a process that has not imported torch."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+class _Span:
+    """One open span of a :class:`Tracer` (see :meth:`Tracer.span`)."""
+
+    __slots__ = ("tr", "name", "args", "id", "parent", "t0", "rf")
+
+    def __init__(self, tr, name, args):
+        self.tr, self.name, self.args = tr, name, args
+
+    def __enter__(self):
+        tr = self.tr
+        self.parent = tr._open[-1] if tr._open else None
+        self.id = tr._next_span
+        tr._next_span += 1
+        tr._open.append(self.id)
+        self.rf = _profiler_range(self.name)
+        self.t0 = tr._now()
+        return self
+
+    def __exit__(self, *exc):
+        tr = self.tr
+        t1 = tr._now()
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+        tr._open.pop()
+        if len(tr.spans) == tr.max_events:
+            tr.spans_dropped += 1
+        tr.spans.append((self.name, self.t0, t1, self.id, self.parent,
+                         tr._tick, tr._replica, self.args))
+        return False
 
 
 class Tracer:
@@ -113,7 +202,8 @@ class Tracer:
 
     ``max_events`` bounds memory: the buffer is a deque ring, oldest events
     are dropped first and counted in ``dropped`` (a truncated trace is
-    still a valid trace of its suffix)."""
+    still a valid trace of its suffix).  Host spans keep a second ring of
+    the same length, their drops counted in ``spans_dropped``."""
 
     enabled = True
 
@@ -122,6 +212,14 @@ class Tracer:
         self.events: deque = deque(maxlen=max_events)
         self.dropped = 0
         self._prev_counters: dict[int, dict] = {}
+        # host spans: a ring of their own, as long, drops counted apart
+        self.spans: deque = deque(maxlen=max_events)
+        self.spans_dropped = 0
+        self._clock = WallClock()       # until an engine binds its own
+        self._replica = 0
+        self._tick = 0
+        self._open: list = []           # ids of the open spans, innermost last
+        self._next_span = 0
 
     # -- recording ------------------------------------------------------
     def _append(self, ev: tuple):
@@ -161,6 +259,30 @@ class Tracer:
         """Replica-scoped instant with no request id (fault injections,
         recoveries) — rendered as a Perfetto ``i`` event, never a span."""
         self._append(("inst", kind, t, replica, payload))
+
+    def bind(self, clock, replica=0, tick=0):
+        """Time the spans that follow on ``clock``, under ``replica`` and
+        engine tick ``tick`` (``EngineCore.tick`` binds its own at the
+        start of every tick; until then spans read a ``WallClock`` made
+        with the tracer)."""
+        self._clock, self._replica, self._tick = clock, replica, tick
+
+    def _now(self) -> float:
+        return self._clock.now()
+
+    def span(self, name, **args):
+        """A context manager recording one host span: ``name``, its start
+        and end on the bound clock, the span open around it (``parent``),
+        the tick and replica, and ``args``."""
+        return _Span(self, name, args)
+
+    def span_records(self) -> list[dict]:
+        """Spans as flat dicts, in the order they ended (a parent after
+        its children): ``name``, ``t0``, ``t1``, ``id``, ``parent`` (None
+        at the top), ``tick``, ``replica``, ``args``."""
+        return [{"name": n, "t0": t0, "t1": t1, "id": i, "parent": p,
+                 "tick": k, "replica": r, "args": a}
+                for n, t0, t1, i, p, k, r, a in self.spans]
 
     # -- record → dict view ---------------------------------------------
     def records(self) -> list[dict]:
@@ -204,9 +326,12 @@ class Tracer:
         async ``b``/``n``/``e`` events keyed by rid, and every
         :data:`COUNTER_FIELDS` entry becomes a ``C`` counter track."""
         te = perfetto_events(self.records())
+        te += span_events(self.span_records())
         doc = {"traceEvents": te, "displayTimeUnit": "ms",
                "otherData": {"source": "repro_torch.serving.telemetry",
                              "dropped_events": self.dropped}}
+        if self.spans or self.spans_dropped:
+            doc["otherData"]["dropped_spans"] = self.spans_dropped
         if path is not None:
             with open(path, "w") as f:
                 json.dump(doc, f, default=float)
@@ -304,6 +429,24 @@ def perfetto_events(records: list[dict]) -> list[dict]:
     return te
 
 
+SPAN_TID = 1       # the host-spans thread of each replica's process
+
+
+def span_events(spans: list[dict]) -> list[dict]:
+    """Host spans (:meth:`Tracer.span_records`) as ``X`` events on each
+    replica's ``host spans`` thread; Perfetto nests them by time."""
+    te = [{"ph": "M", "name": "thread_name", "pid": r, "tid": SPAN_TID,
+           "args": {"name": "host spans"}}
+          for r in sorted({s["replica"] for s in spans})]
+    for s in sorted(spans, key=lambda s: (s["t0"], s["id"])):
+        te.append({"ph": "X", "name": s["name"], "cat": "span",
+                   "pid": s["replica"], "tid": SPAN_TID, "ts": s["t0"] * _US,
+                   "dur": max(s["t1"] - s["t0"], 0.0) * _US,
+                   "args": {"tick": s["tick"], "id": s["id"],
+                            "parent": s["parent"], **s["args"]}})
+    return te
+
+
 def _tick_counters(rec: dict):
     gauges = rec.get("gauges") or {}
     counters = rec.get("counters") or {}
@@ -327,6 +470,9 @@ def _tick_counters(rec: dict):
         "cow_copies": counters.get("cow_copies"),
         "swap_in_bytes": counters.get("swap_in_bytes"),
         "swap_out_bytes": counters.get("swap_out_bytes"),
+        "graph_captures": counters.get("graph_captures"),
+        "graph_capture_s": counters.get("graph_capture_s"),
+        "graph_replays": counters.get("graph_replays"),
     }
     out = [(name, v) for name in COUNTER_FIELDS
            if (v := vals.get(name)) is not None]

@@ -1,6 +1,7 @@
 """``repro_torch`` stands alone: every module imports with jax blocked, and
-no file of the port (nor ``chip_smoke.py``, ``chip_ab.py`` or the example
-twins ``examples/*_torch.py``) imports jax or the JAX package."""
+no file of the port (nor ``chip_smoke.py``, ``chip_ab.py``,
+``chip_spans.py`` or the example twins ``examples/*_torch.py``) imports
+jax or the JAX package."""
 
 import ast
 import os
@@ -17,7 +18,9 @@ EXAMPLE_TWINS = [ROOT / "examples" / f"{name}_torch.py" for name in (
     "quickstart", "scheduler_sim", "serve_elastic", "cluster_sim",
     "train_diffusion_lm")]
 PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "chip_ab.py"] + EXAMPLE_TWINS
+                                         ROOT / "chip_ab.py",
+                                         ROOT / "chip_spans.py"] + \
+    EXAMPLE_TWINS
 
 
 def _modules():
