@@ -2,7 +2,8 @@
 """Serve a benchmark cell with the program's tracer on, and read its spans.
 
     python3 chip_spans.py --workload sdar8b-sharegpt-0.8knee \\
-        --seeds 11 12 13 [--seconds 51] [--mode readings|cost] [--out F]
+        --seeds 11 12 13 [--seconds 51] [--mode readings|cost|shapes] \\
+        [--out F]
 
 Each run is the benchmark's own (``bench/run.py``'s ``harness.runner.run``,
 in this process, its files untouched): the same set-up, warm-up, pre-roll,
@@ -26,6 +27,9 @@ and tick records and import no analysis of the program:
   ``pages_in_use`` over ``n_pages``, in %;
 * ``graph_capture_s``: the counter ``graph_capture_s`` at the window's
   first tick (host seconds of set-up spent capturing graphs);
+* ``prefill_tokens_per_dispatch`` and ``prefill_padded_share``: prompt
+  tokens a chunked-prefill dispatch, and the % of its padded rows they
+  fill, from the backend's counters (``prefill_padding``);
 
 with the slice's idle gaps named by the innermost open range, the
 harness's (``bench.*``) or the program's, and the idle seconds by that
@@ -33,7 +37,9 @@ name (``idle_by_span``).  ``--mode cost`` (``--trace 0`` runs, the tracer
 off and on in turns, the order swapped each seed): ``tokens_per_s``,
 ``decode_step_ms`` and, with the tracer on, ``tick_host_ms`` over the
 whole window, unprofiled.  Either mode prints one JSON line a run and,
-last, the list of them (also written to ``--out``).
+last, the list of them (also written to ``--out``).  ``--mode shapes``
+(the first seed only) times the cell's chunked-prefill dispatch by its
+padded shape (``prefill_shapes``) and prints one JSON object.
 """
 
 from __future__ import annotations
@@ -147,6 +153,26 @@ def graph_capture_s(records: list, w0: float, w1: float):
     if not ticks:
         return None
     return (ticks[0].get("counters") or {}).get("graph_capture_s")
+
+
+def prefill_padding(records: list, w0: float, w1: float) -> dict:
+    """From the backend's tick counters over the window: prompt tokens a
+    prefill dispatch (``prefill_tick_tokens`` over the growth of
+    ``prefill_dispatches``) and the % of the dispatches' padded rows that
+    carry one (over the growth of ``prefill_padded_tokens``); empty where
+    the program has no such counter."""
+    c = [r.get("counters") or {} for r in _window_ticks(records, w0, w1)]
+    if len(c) < 2 or "prefill_padded_tokens" not in c[0]:
+        return {}
+    tokens = sum(x.get("prefill_tick_tokens", 0) for x in c[1:])
+    grew = {k: c[-1][k] - c[0][k]
+            for k in ("prefill_dispatches", "prefill_padded_tokens")}
+    if not grew["prefill_dispatches"]:
+        return {}
+    return {"prefill_tokens_per_dispatch":
+            tokens / grew["prefill_dispatches"],
+            "prefill_padded_share":
+            100.0 * tokens / grew["prefill_padded_tokens"]}
 
 
 def step_host_idle_share(idle_by_span: dict, window_s: float):
@@ -287,6 +313,7 @@ def run_once(cell, seed: int, seconds: float, trace: bool, device,
           "kv_live_pages_share": kv_live_pages_share(records, run.w0,
                                                      run.w1),
           "graph_capture_s": graph_capture_s(records, run.w0, run.w1),
+          **prefill_padding(records, run.w0, run.w1),
           "ticks": n_ticks, "spans": len(spans), "events": len(records),
           "spans_per_tick": len(spans) / max(n_ticks, 1),
           "events_per_tick": len(records) / max(n_ticks, 1),
@@ -301,6 +328,103 @@ def run_once(cell, seed: int, seconds: float, trace: bool, device,
             g["idle_by_span"], run.trace["window_s"]))
     res["spans"] = sp
     return res
+
+
+# (requests, prompt tokens each) a plan takes in one prefill dispatch,
+# padded to [1, 32|64|128|256|512], [2, 256], [4, 128], [8, 64]
+PREFILL_SHAPES = ((1, 32), (1, 64), (1, 128), (1, 256), (1, 448), (2, 224),
+                  (4, 112), (8, 56))
+# [1, T] dispatches past the planner's bound, for the saturation point
+BEYOND = (1024, 2048)
+# timed dispatches of each shape (a median is taken)
+REPS = 20
+
+
+def prefill_shapes(cell, seed: int, device) -> dict:
+    """The chunked-prefill dispatch's time by its padded shape, untraced
+    by the profiler: the cell's backend as the benchmark builds it
+    (construction timed: it captures the prefill shapes), each of
+    ``PREFILL_SHAPES`` admitted with fresh prompts and prefilled by the
+    backend's own prefill tick ``REPS`` times, with the tracer on; the
+    medians of ``prefill.fetch`` (the host's wait on the device) and
+    ``prefill.dispatch``.  Then ``[1, T]`` dispatches of ``BEYOND``, timed
+    from the dispatch to the fetch's end (each captured on its first
+    call, which is not timed)."""
+    import numpy as np
+    import torch
+
+    from harness import serve, weights
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.telemetry import Tracer
+    cfg = cell.config
+    dev = torch.device(device)
+    model = serve.build_model(cfg)
+    params, _ = weights.draw(model.init_params(device="meta"), cfg, seed,
+                             dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    be = serve.build_backend(model, params, cfg, dev)
+    torch.cuda.synchronize(dev)
+    out = {"construct_s": time.perf_counter() - t0,
+           "graphs_at_construction": serve.graph_count(be),
+           "budget": be._prefill.budget, "max_rows": be._prefill.max_rows,
+           "capture_s": be.graphs.capture_s if be.graphs else None,
+           "shapes": {}}
+    tracer = Tracer()
+    be.set_tracer(tracer)
+    rng = np.random.default_rng(seed)
+    vocab = model.cfg.vocab_size
+    rid = 0
+    for b, n in PREFILL_SHAPES:
+        fetch, disp, shape = [], [], None
+        for rep in range(REPS + 2):
+            rids = []
+            for _ in range(b):
+                rid += 1
+                rids.append(rid)
+                be.admit(Request(rid, 0.0, n, 1, prompt_tokens=rng.integers(
+                    4, vocab, n).tolist()))
+            tracer.spans.clear()
+            while be._prefill.queue:
+                be._prefill_tick()
+                shape = shape or next(
+                    s["args"]["padded"] for s in tracer.span_records()
+                    if s["name"] == "prefill.dispatch")
+            spans = tracer.span_records()
+            if rep >= 2:
+                fetch += [s["t1"] - s["t0"] for s in spans
+                          if s["name"] == "prefill.fetch"]
+                disp += [s["t1"] - s["t0"] for s in spans
+                         if s["name"] == "prefill.dispatch"]
+            for r in rids:
+                be.release(r)
+        out["shapes"][f"{b}x{n}"] = {
+            "padded_rows": shape, "dispatches": len(fetch),
+            "fetch_ms": statistics.median(fetch) * 1e3,
+            "dispatch_ms": statistics.median(disp) * 1e3,
+            "tokens_per_ms": b * n / (statistics.median(
+                [d + f for d, f in zip(disp, fetch)]) * 1e3)}
+    for T in BEYOND:
+        rid += 1
+        be.kv.allocate(rid, T)
+        host = dict(toks=rng.integers(4, vocab, (1, T)),
+                    offs=np.zeros(1, np.int64),
+                    valid=np.full(1, T, np.int64),
+                    tables=np.asarray(be.kv.batch_tables([rid],
+                                                         be._table_width),
+                                      np.int32))
+        ms = []
+        for rep in range(REPS + 1):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            be._to_host(*be._dispatch("chunk", be._chunk, **host))
+            if rep:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        be.kv.free(rid)
+        out["shapes"][f"1x{T}"] = {"padded_rows": T,
+                                   "fetch_ms": statistics.median(ms),
+                                   "tokens_per_ms": T / statistics.median(ms)}
+    return out
 
 
 def card() -> str | None:
@@ -340,7 +464,7 @@ def main(argv=None) -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--seconds", type=float, default=51.0)
-    ap.add_argument("--mode", choices=("readings", "cost"),
+    ap.add_argument("--mode", choices=("readings", "cost", "shapes"),
                     default="readings")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -356,6 +480,14 @@ def main(argv=None) -> int:
     print(json.dumps({"card": card(), "torch": torch.__version__}),
           flush=True)
     cell = load_cell(args.workload, ROOT)
+    if args.mode == "shapes":
+        doc = {"workload": args.workload, "mode": args.mode, "card": card(),
+               **prefill_shapes(cell, args.seeds[0], "cuda")}
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(doc, indent=1))
+        print(json.dumps(doc))
+        return 0
     if args.mode == "cost":         # untraced runs read decode_step_ms too
         cell = dataclasses.replace(cell, end_to_end=cell.end_to_end + [
             {"name": "decode_step_ms", "unit": "ms"}])

@@ -88,7 +88,7 @@ def build_entries(kv_shards: int = 1, device="cuda", *, model=None,
     from repro_torch.launch.mesh import make_kv_mesh
     from repro_torch.models import ArchConfig, build_model
     from repro_torch.models.transformer import copy_pages, write_pages
-    from repro_torch.serving.backends import (ModelBackend,
+    from repro_torch.serving.backends import (ModelBackend, _pow2,
                                               _split_kv_collective_bytes)
 
     dev = torch.empty(0, device=device).device
@@ -167,8 +167,8 @@ def build_entries(kv_shards: int = 1, device="cuda", *, model=None,
             churn=None if S > 1 else ChurnSpec(
                 # raw tick batches 1..4 bucket to {1, 2, 4}: three shapes
                 arg_makers=[
-                    (lambda b=b: (decode_args(be._bucket(b), c),
-                                  shard_kw(be._bucket(b))))
+                    (lambda b=b: (decode_args(_pow2(b), c),
+                                  shard_kw(_pow2(b))))
                     for b in (1, 2, 3, 4)],
                 declared_buckets=3),
         ),
@@ -256,6 +256,10 @@ KNOWN_DISPATCH_SITES = {
      "ModelBackend._dispatch", "self.graphs.dispatch"),
     ("src/repro_torch/serving/graphs.py",
      "CudaCapturer.capture", "torch.cuda.CUDAGraph"),
+    # a key captured before its first call (ModelBackend's chunked-prefill
+    # shapes, at construction on a card)
+    ("src/repro_torch/serving/graphs.py",
+     "DispatchGraphs.prepare", "self.dispatch"),
     ("src/repro_torch/serving/backends.py",
      "ModelBackend._slot_prefill", "self.model.prefill_slot"),
     ("src/repro_torch/serving/backends.py",

@@ -109,8 +109,10 @@ def main():
                          "prefill baseline")
     ap.add_argument("--prefill-budget", type=int, default=None,
                     help="fixed max prompt tokens prefetched per engine "
-                         "tick (default: adaptive Sarathi-style budget "
-                         "target_bc - live b*c)")
+                         "tick (default: the model backend on an H100 SXM "
+                         "or A100 SXM takes the prefill dispatch's own "
+                         "saturation point; the CPU and the sim the adaptive "
+                         "Sarathi-style target_bc - live b*c)")
     ap.add_argument("--workload", default="poisson",
                     choices=["poisson", "bursty", "diurnal", "shared"],
                     help="arrival trace: shared = multi-turn/system-prompt "

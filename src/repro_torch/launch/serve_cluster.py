@@ -134,8 +134,10 @@ def main():
                          "synchronously (baseline)")
     ap.add_argument("--prefill-budget", type=int, default=None,
                     help="fixed max prompt tokens prefetched per replica "
-                         "tick (default: adaptive Sarathi-style budget "
-                         "target_bc - live b*c)")
+                         "tick (default: a model replica on an H100 SXM "
+                         "or A100 SXM takes the prefill dispatch's own "
+                         "saturation point; the CPU and the sim the adaptive "
+                         "Sarathi-style target_bc - live b*c)")
     ap.add_argument("--preemption", action="store_true",
                     help="evict low-priority requests under KV pressure")
     ap.add_argument("--high-priority-frac", type=float, default=None,

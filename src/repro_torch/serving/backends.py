@@ -30,6 +30,7 @@ retry the step.
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -38,7 +39,7 @@ import torch
 from repro_torch.core.chunked import (ChunkedDecodeState, batch_apply_step,
                                 batch_windows, freeze_run)
 from repro_torch.core.diffusion import softmax_confidence
-from repro_torch.core.latency_model import (CPU_HOST, TPU_V5E,
+from repro_torch.core.latency_model import (CPU_HOST, DEVICES, TPU_V5E,
                                             AnalyticDeviceModel, DeviceSpec,
                                             kv_bytes_per_token, swap_cost_s)
 from repro_torch.distributed.collectives import KVShardSpec
@@ -49,6 +50,30 @@ from repro_torch.serving.kv_pool import OutOfPages, PagedKVAllocator
 from repro_torch.serving.request import Request
 from repro_torch.serving.telemetry import NULL_TRACER
 from repro_torch.serving.workload import CommitSimulator
+
+
+# a card's name (``torch.cuda.get_device_name``) → its roofline in DEVICES;
+# only the variants the specs describe (an H100 PCIe or NVL, or a 40 GB
+# A100, has other peaks, so it keeps the CPU_HOST sizing)
+_CARD_SPECS = (("H100 80GB HBM3", "h100-sxm"), ("A100-SXM4-80GB", "a100-80g"))
+_UNKNOWN_CARDS: set = set()
+
+
+def _card_spec(device: torch.device) -> DeviceSpec | None:
+    """The roofline of the card ``device`` is, found by its name; None for
+    the CPU, and for a card not in ``_CARD_SPECS`` (logged once a name)."""
+    if device.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(device)
+    for family, spec in _CARD_SPECS:
+        if family in name:
+            return DEVICES[spec]
+    if name not in _UNKNOWN_CARDS:
+        _UNKNOWN_CARDS.add(name)
+        logging.getLogger(__name__).warning(
+            "no roofline for the card %r: chunked prefill keeps the "
+            "CPU_HOST sizing", name)
+    return None
 
 
 def _slot_tensors(cache) -> list:
@@ -152,17 +177,48 @@ class PrefillScheduler:
     (the fixed default cost 0.55–0.68× prompt throughput past
     saturation).  Cached prefix tokens never enter the budget at all:
     ``add`` starts the cursor past them.
+
+    Padded shape: a plan runs as one ``[bucket(B), bucket(max n)]``
+    dispatch (:meth:`padded`, both powers of two).  With ``max_rows`` set,
+    the token axis pads to at least one aligned chunk, and ``plan`` stops
+    adding requests where the shape's rows would pass ``max_rows``: the
+    plans then take a small, known set of shapes (:meth:`shapes`), and
+    the queue head always gets its chunk.  ``max_rows=None`` (the
+    default) bounds nothing.
     """
 
     def __init__(self, budget: int | None, align: int,
-                 target_bc: int | None = None):
+                 target_bc: int | None = None, max_rows: int | None = None):
         self.align = max(1, int(align))
         self.fixed = budget is not None
         self.budget = max(int(budget), self.align) if budget is not None \
             else 4 * self.align
         self.target_bc = int(target_bc) if target_bc is not None else None
+        self.max_rows = max_rows
+        # the token axis's least padded length
+        self.min_tokens = self.align if max_rows is not None else 1
         self.queue: list[Request] = []        # FCFS over admissions
         self.cursor: dict[int, int] = {}      # rid → prompt tokens prefilled
+
+    def padded(self, batch: int, max_n: int) -> tuple[int, int]:
+        """The dispatch shape ``(Bp, Tp)`` of a plan of ``batch`` chunks
+        whose longest is ``max_n`` tokens."""
+        return _pow2(batch), _pow2(max(max_n, self.min_tokens))
+
+    def shapes(self, max_tokens: int,
+               rows: int | None = None) -> list[tuple[int, int]]:
+        """Every ``(Bp, Tp)`` a ``max_rows``-bounded plan can take whose
+        chunks are at most ``max_tokens`` long, of at most ``rows`` padded
+        rows (default ``max_rows``)."""
+        rows = self.max_rows if rows is None else min(rows, self.max_rows)
+        out, tp = [], _pow2(self.min_tokens)
+        while tp <= min(_pow2(max(max_tokens, self.min_tokens)), rows):
+            bp = 1
+            while bp * tp <= rows:
+                out.append((bp, tp))
+                bp *= 2
+            tp *= 2
+        return out
 
     def add(self, req: Request, start: int = 0) -> bool:
         """Queue a request's prefill from ``start`` (tokens a prefix-cache
@@ -201,8 +257,8 @@ class PrefillScheduler:
     def plan(self, live_bc: int = 0) -> list[tuple[Request, int, int]]:
         """This tick's chunk assignments [(req, offset, n_tokens)]:
         Σ n_tokens ≤ tick_budget(live_bc), FCFS, ends aligned except
-        final chunks."""
-        out, left = [], self.tick_budget(live_bc)
+        final chunks, padded rows ≤ ``max_rows`` past the queue head."""
+        out, left, max_n = [], self.tick_budget(live_bc), 0
         for req in self.queue:
             if left <= 0:
                 break
@@ -213,8 +269,13 @@ class PrefillScheduler:
                 if aligned <= off:      # leftover budget < one aligned chunk
                     break
                 end = aligned
+            if out and self.max_rows is not None:
+                bp, tp = self.padded(len(out) + 1, max(max_n, end - off))
+                if bp * tp > self.max_rows:
+                    break
             out.append((req, off, end - off))
             left -= end - off
+            max_n = max(max_n, end - off)
         return out
 
     def advance(self, rid: int, n: int) -> bool:
@@ -226,6 +287,32 @@ class PrefillScheduler:
             self.remove(rid)
             return True
         return False
+
+
+def _pow2(n: int) -> int:
+    """Next power of two ≥ n — bounds the distinct dispatch shapes."""
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+# The chunked-prefill shapes a backend on a known card captures at
+# construction have at most this many padded rows (all of SDAR-8B's on
+# the H100); larger ones are captured on first use.  The graph pool grows
+# with the largest shape captured: on the H100 0.33 GB for SDAR-8B's 512
+# rows, 6.1 GB for Scout-8L's 4,096 and 10 GB for smollm-135m's 8,192 at
+# max_len 4,096, the last two paid at construction though a plan reaches
+# them only with that many prompt tokens queued.
+SETUP_PREFILL_ROWS = 512
+
+
+def own_prefill_budget(analytic: AnalyticDeviceModel, align: int) -> int:
+    """The prompt tokens a prefill dispatch of its own takes a tick: its
+    saturation point on ``analytic``'s device, aligned down to ``align``
+    and clamped to [align, 8192]."""
+    chunks = int(analytic.saturation_ew() // align)
+    return min(max(chunks, 1), 8192 // align) * align
 
 
 def _prefill_align(page_size: int, cfg: ArchConfig) -> int:
@@ -857,6 +944,29 @@ class ModelBackend:
     ``host_transfer_bytes``.  An AR request gets its prefill-derived first
     token at the end of the tick its last chunk lands.
 
+    **Prefill sizing** follows the device served on (``_card_spec``: the
+    card's name picks its roofline from ``DEVICES``).  On a known card,
+    with no explicit ``prefill_token_budget``, each tick's prefill budget
+    is the saturation point of the prefill dispatch itself
+    (``saturation_ew()`` aligned down, clamped to [align, 8192]: 448
+    tokens for SDAR-8B on the H100).  It is not net of the decode batch's
+    ``b·c``, as the ``SimBackend``'s rule is: there the chunks ride the
+    decode dispatch, while here the prefill chunk is a dispatch of its own
+    with its own pass over the weights, so below its saturation point a
+    longer chunk costs almost nothing more; the price is a longer stall
+    for the decoding requests on a tick that carries a full budget.  Its
+    padded shape is bounded (``PrefillScheduler.max_rows``: ``bucket(B) ×
+    bucket(max n) ≤ bucket(budget)``), its token axis padded to at least
+    one aligned chunk, and every shape it can take of at most
+    ``SETUP_PREFILL_ROWS`` rows is captured at construction, before the
+    first request (a larger one on its first use).  On the CPU, on a card
+    not in the table, and with an explicit budget, the reference's rule
+    holds: ``CPU_HOST``'s ``target_bc − b·c``, which clamps to one aligned
+    chunk for these models, or the fixed budget; so a CPU backend plans as
+    the reference.
+    ``prefill_padded_tokens`` counts the padded rows of every prefill
+    dispatch.
+
     The pool is updated in place by every dispatch, COW copy and swap-in
     (the torch form of the JAX package's donation contract):
     ``kv.k_pages.data_ptr()`` is fixed for the backend's life.
@@ -923,8 +1033,9 @@ class ModelBackend:
     (``batch_apply_step``, ``advance``, each ``StepInfo``) and
     ``kv.trim``; the slot path ``slot.prefill``, ``slot.dispatch``,
     ``slot.fetch`` and ``slot.sample`` (the host's fp64 sampling).  A
-    dispatch span carries its ``batch`` and ``tokens`` and holds the graph
-    cache's ``graph.load``/``graph.replay``/``graph.capture``, or one
+    dispatch span carries its ``batch`` and ``tokens`` (a prefill's also
+    its ``padded`` rows, Bp × Tp) and holds the graph cache's
+    ``graph.load``/``graph.replay``/``graph.capture``, or one
     ``graph.eager`` when nothing is captured.
     """
 
@@ -962,6 +1073,7 @@ class ModelBackend:
         # hot-path telemetry
         self.decode_dispatches = 0       # decode dispatches
         self.prefill_dispatches = 0      # prefill dispatches
+        self.prefill_padded_tokens = 0   # their padded rows, Bp × Tp
         self.host_transfer_bytes = 0     # device→host bytes (conf + tok)
         self.device_dispatches = 0
         self.collective_bytes = 0
@@ -998,16 +1110,22 @@ class ModelBackend:
                                  device=self.device)
         self._table_width = self.kv.pages_for(max_len)
         self._n_attn_layers = model.paged_kv_dims()[0]
-        # cost-model stand-in for swap-vs-recompute and adaptive prefill
-        # sizing (kept at the reference's CPU_HOST spec for parity)
-        self._analytic = AnalyticDeviceModel(self.cfg, CPU_HOST)
+        # cost model of the device served on, for swap-vs-recompute and
+        # prefill sizing: a known card's roofline, else the reference's
+        # CPU_HOST spec (so a CPU backend plans as the reference does)
+        card = _card_spec(self.device)
+        self._analytic = AnalyticDeviceModel(self.cfg, card or CPU_HOST)
         align = _prefill_align(ps, self.cfg)
-        target_bc = None
+        budget, target_bc, max_rows = prefill_token_budget, None, None
         if prefill_token_budget is None and prefill_mode == "chunked":
-            target_bc = int(min(max(self._analytic.saturation_ew(), align),
-                                8192))
-        self._prefill = PrefillScheduler(prefill_token_budget, align,
-                                         target_bc=target_bc)
+            if card is not None:        # the dispatch's own saturation
+                budget = own_prefill_budget(self._analytic, align)
+                max_rows = _pow2(budget)
+            else:                       # the reference's net rule
+                target_bc = int(min(max(self._analytic.saturation_ew(),
+                                        align), 8192))
+        self._prefill = PrefillScheduler(budget, align, target_bc=target_bc,
+                                         max_rows=max_rows)
         self._prefix_align = align
         self.prefix_cache = prefix_cache
         if host_kv_pages:
@@ -1018,6 +1136,23 @@ class ModelBackend:
         self.prefix_hit_tokens = 0
         self.graphs = self._graph_cache(graphs)
         self.kv.graphs = self.graphs        # COW copies and swap-ins
+        if self.graphs is not None and self._prefill.max_rows is not None:
+            self._capture_prefill_shapes()
+
+    def _capture_prefill_shapes(self):
+        """Capture the chunked-prefill shapes the bounded planner can
+        produce of at most ``SETUP_PREFILL_ROWS`` padded rows, before the
+        first request: dispatches of valid-0 rows, which write nothing to
+        the pool and count in no counter.  A larger shape is captured on
+        its first use."""
+        for bp, tp in self._prefill.shapes(self.max_len,
+                                           SETUP_PREFILL_ROWS):
+            z = np.zeros(bp, np.int64)
+            host = dict(toks=np.zeros((bp, tp), np.int64), offs=z, valid=z,
+                        tables=np.zeros((bp, self._table_width), np.int32),
+                        **self._shard_offs([], bp))
+            self.graphs.prepare(self._graph_key("chunk", host), self._chunk,
+                                host)
 
     def set_tracer(self, tracer):
         """Open this backend's spans, and its graph cache's, on
@@ -1035,14 +1170,6 @@ class ModelBackend:
             return None
         return DispatchGraphs(self.device, self._pool_ptrs,
                               capturer=None if graphs is True else graphs)
-
-    @staticmethod
-    def _bucket(n: int) -> int:
-        """Next power of two ≥ n — bounds the distinct dispatch shapes."""
-        b = 1
-        while b < n:
-            b *= 2
-        return b
 
     # ------------------------------------------------------------------
     def _prefix_lookup(self, req: Request):
@@ -1278,8 +1405,11 @@ class ModelBackend:
             with self.tracer.span("graph.eager"):
                 return fn({k: torch.as_tensor(a, device=self.device)
                            for k, a in host.items()})
-        key = (kind, host["toks"].shape, self._impl, self.kv_shards)
-        return self.graphs.dispatch(key, fn, host)
+        return self.graphs.dispatch(self._graph_key(kind, host), fn, host)
+
+    def _graph_key(self, kind: str, host: dict) -> tuple:
+        """The graph cache's key of a dispatch on the padded ``host``."""
+        return (kind, host["toks"].shape, self._impl, self.kv_shards)
 
     # the three dispatches, each on its static (or eager) inputs ``t``
     def _wave(self, t):
@@ -1327,8 +1457,8 @@ class ModelBackend:
             return set()
         with tr.span("prefill.plan"):
             B = len(reqs)
-            Bp = self._bucket(B)
-            Tp = self._bucket(max(r.prompt_len for r in reqs))
+            Bp = _pow2(B)
+            Tp = _pow2(max(r.prompt_len for r in reqs))
             toks = np.zeros((Bp, Tp), np.int64)
             lens = np.zeros(Bp, np.int32)
             tables = np.zeros((Bp, self._table_width), np.int32)
@@ -1338,10 +1468,12 @@ class ModelBackend:
                 toks[i, :r.prompt_len] = np.asarray(r.prompt_tokens)
                 lens[i] = r.prompt_len
         n_tokens = sum(r.prompt_len for r in reqs)
-        with tr.span("prefill.dispatch", batch=B, tokens=n_tokens):
+        with tr.span("prefill.dispatch", batch=B, tokens=n_tokens,
+                     padded=Bp * Tp):
             conf, tok = self._dispatch("wave", self._wave, toks=toks,
                                        lens=lens, tables=tables)
             self.prefill_dispatches += 1
+            self.prefill_padded_tokens += Bp * Tp
             # wave prefill never reads the paged prefix (scatter only)
             self.device_dispatches += self.kv_shards
         with tr.span("prefill.fetch"):
@@ -1373,8 +1505,7 @@ class ModelBackend:
                 for req, off, n in plan:
                     self.kv.ensure_private(req.rid, off, off + n)
             B = len(plan)
-            Bp = self._bucket(B)
-            Tp = self._bucket(max(n for _, _, n in plan))
+            Bp, Tp = self._prefill.padded(B, max(n for _, _, n in plan))
             toks = np.zeros((Bp, Tp), np.int64)
             offs = np.zeros(Bp, np.int64)
             val = np.zeros(Bp, np.int64)
@@ -1386,12 +1517,14 @@ class ModelBackend:
                 offs[i] = off
                 val[i] = n
         n_tokens = sum(n for _, _, n in plan)
-        with tr.span("prefill.dispatch", batch=B, tokens=n_tokens):
+        with tr.span("prefill.dispatch", batch=B, tokens=n_tokens,
+                     padded=Bp * Tp):
             conf, tok = self._dispatch(
                 "chunk", self._chunk, toks=toks, offs=offs, valid=val,
                 tables=tables,
                 **self._shard_offs([req.rid for req, _, _ in plan], Bp))
             self.prefill_dispatches += 1
+            self.prefill_padded_tokens += Bp * Tp
             self._account_device_dispatch(Bp, Tp)
         with tr.span("prefill.fetch"):
             conf, tok = self._to_host(conf, tok)
@@ -1444,6 +1577,7 @@ class ModelBackend:
                 "prefill_backlog": self._prefill.backlog,
                 "prefill_tick_tokens": self.last_prefill_plan
                 and sum(n for _, _, n in self.last_prefill_plan) or 0,
+                "prefill_padded_tokens": self.prefill_padded_tokens,
                 "prefix_hits": self.prefix_hits,
                 "prefix_misses": self.prefix_misses,
                 "prefix_hit_tokens": self.prefix_hit_tokens,
@@ -1467,7 +1601,7 @@ class ModelBackend:
         and padding with the dispatch.
         """
         B, c = win.shape
-        Bp = self._bucket(B)
+        Bp = _pow2(B)
         tr = self.tracer
         with tr.span("decode.dispatch", batch=B, tokens=int(np.sum(valid))):
             tables = np.zeros((Bp, self._table_width), np.int32)

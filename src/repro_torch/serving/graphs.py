@@ -257,6 +257,19 @@ class DispatchGraphs:
             self.replays += 1
         return e.outputs
 
+    def prepare(self, key, fn, host: dict):
+        """Capture ``key`` before its first call, on the inputs ``host``, as
+        :meth:`dispatch` would; the warm run's trace-time counts are taken
+        back out, so a set-up capture counts no launch.  ``capture_s``
+        counts its seconds."""
+        if key in self.entries:
+            return
+        before = _snapshot()
+        try:
+            self.dispatch(key, fn, host)
+        finally:
+            _restore(before)
+
     def _load(self, static: dict, host: dict):
         pin = self.device.type == "cuda"
         for name, a in host.items():

@@ -167,6 +167,23 @@ def test_pool_and_capture_readers_take_the_window():
                               0.0, 2.0) is None
 
 
+def test_prefill_padding_reads_the_window_counters():
+    """Prompt tokens a dispatch and the padded rows they fill, over the
+    window's ticks; nothing from a program without the counter."""
+    recs = [{"kind": "tick", "t": t,
+             "counters": {"prefill_dispatches": d, "prefill_padded_tokens": p,
+                          "prefill_tick_tokens": k}}
+            for t, d, p, k in ((0.5, 1, 32, 30), (1.0, 2, 64, 20),
+                               (1.5, 3, 576, 448), (1.7, 3, 576, 0),
+                               (1.9, 4, 640, 40))]
+    got = cs.prefill_padding(recs, 1.0, 2.0)
+    assert got["prefill_tokens_per_dispatch"] == pytest.approx(244.0)
+    assert got["prefill_padded_share"] == pytest.approx(100 * 488 / 576)
+    parent = [{"kind": "tick", "t": t, "counters": {"prefill_dispatches": t}}
+              for t in (1.0, 1.5)]
+    assert cs.prefill_padding(parent, 0.0, 2.0) == {}
+
+
 def test_span_means_split_at_the_profiled_slice():
     spans = [_s("engine.tick", 0.0, 0.010), _s("graph.replay", 0.001, 0.003),
              _s("engine.tick", 0.020, 0.040, tick=2),

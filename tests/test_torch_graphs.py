@@ -31,6 +31,7 @@ from repro_torch.kernels import block_diffusion_attn as bda
 from repro_torch.kernels import chunked_paged_attn as cpa
 from repro_torch.launch.mesh import make_kv_mesh
 from repro_torch.models import ArchConfig, build_model, moe, params_from_jax
+from repro_torch.serving import backends as tbackends
 from repro_torch.serving.graphs import DispatchGraphs, RerunCapturer
 
 SDAR = dataclasses.asdict(get_smoke_config("sdar-8b"))
@@ -232,7 +233,7 @@ def test_captured_backend_commits_reference_tokens(weights, mode, S):
     assert len(keys) == len(set(keys)) and 0 < len(keys) < n
     assert be.graphs.replays == n - len(keys)
     for kind, shape, impl, shards in keys:
-        assert shape[0] == be._bucket(shape[0]) and shards == S
+        assert shape[0] == tbackends._pow2(shape[0]) and shards == S
         assert kind in ({"decode", "wave"} if mode == "wave"
                         else {"decode", "chunk"})
     assert be.kv.free_pages == be.kv.n_pages
@@ -333,8 +334,7 @@ def test_hlo005_counts_graphs(monkeypatch):
     # and a wave graph, and the audited page moves' copy and swap-in
     # graphs (one block)
     assert st["graphs"] == 5 + 2
-    monkeypatch.setattr(tserving.ModelBackend, "_bucket",
-                        staticmethod(lambda n: n))
+    monkeypatch.setattr(tbackends, "_pow2", lambda n: n)
     fs = check.audit_graphs(1, "cpu")
     assert [f.rule for f in fs] == ["HLO005"]
     assert "captured 4 graphs" in fs[0].message
