@@ -36,17 +36,23 @@ def roofline_seconds(flops: float, nbytes: float) -> tuple[float, str]:
     return (tc, "compute") if tc >= tm else (tm, "memory")
 
 
-def matmul_params(layout: dict, skip=()) -> int:
+def matmul_params(layout: dict, skip=(), n_experts: int = 0,
+                  top_k: int = 0) -> int:
     """Weights one token multiplies through, per token: every leaf of two
     or more axes but the embedding, the output head, the norms' scales and
-    ``skip``."""
+    ``skip``.  A stack of experts, ``[layers, n_experts, in, out]``, counts
+    the ``top_k`` experts a token is routed to, ``top_k / n_experts`` of
+    its size; the router, ``[layers, in, n_experts]``, counts in full."""
     n = 0
     for name, t in layout.items():
         leaf = name.split("/")[-1]
         if name in ("embed", "lm_head") or leaf in (*skip, "scale") \
                 or t.dim() < 2:
             continue
-        n += math.prod(t.shape)
+        size = math.prod(t.shape)
+        if n_experts and t.dim() == 4 and t.shape[1] == n_experts:
+            size = size // n_experts * top_k
+        n += size
     return n
 
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 import gc
 import importlib.util
 import json
+import math
 import sys
 import time
 from dataclasses import dataclass, field
@@ -30,7 +31,9 @@ PAGED_KERNELS = ("paged_chunk_attn",)
 @dataclass
 class Run:
     """What a reader is handed: the cell, the arrivals, the probes' record,
-    the window [w0, w1) on the engine clock, and the rest of the run."""
+    the window [w0, w1) on the engine clock, and the rest of the run; in a
+    traced run also the timed engine's own records, from the program's
+    tracer (``ticks()``, ``spans()``)."""
     cell: Cell
     arrivals: list
     rec: serve.Record
@@ -41,6 +44,8 @@ class Run:
     trace: dict | None
     shape: dict                     # the model's sizes for the arithmetic
     extra: dict = field(default_factory=dict)
+    tick_log: list = field(default_factory=list)    # the tracer's ticks
+    span_log: list = field(default_factory=list)    # and its host spans
 
     @property
     def seconds(self) -> float:
@@ -48,6 +53,22 @@ class Run:
 
     def calls(self) -> list:
         return stats.calls_in(self.rec.calls, self.w0, self.w1)
+
+    def ticks(self) -> list:
+        """The timed engine's tick records (``Tracer.records()``) that
+        started inside the window, in order, each with the program's
+        ``counters`` and the pool's ``gauges``; none in an untraced run."""
+        return [r for r in self.tick_log if self.w0 <= r["t"] < self.w1]
+
+    def spans(self) -> list:
+        """The program's host spans (``Tracer.span_records()``) of the
+        ticks whose ``engine.tick`` lies inside the window; none in an
+        untraced run."""
+        inside = {(s["replica"], s["tick"]) for s in self.span_log
+                  if s["name"] == "engine.tick" and self.w0 <= s["t0"]
+                  and s["t1"] <= self.w1}
+        return [s for s in self.span_log
+                if (s["replica"], s["tick"]) in inside]
 
 
 def load_reader(name: str):
@@ -60,14 +81,20 @@ def load_reader(name: str):
 
 
 def model_shape(model, layout: dict, config: dict) -> dict:
-    cfg = model.cfg
+    cfg, arch = model.cfg, config["arch"]
     attn = len(model.attn_positions()) * model.n_periods
     return {"params": costs.matmul_params(layout,
-                                          config.get("zero_leaves", ())),
+                                          config.get("zero_leaves", ()),
+                                          arch.get("n_experts", 0),
+                                          arch.get("top_k", 0)),
             "d_model": cfg.d_model, "vocab": cfg.vocab_size,
             "n_attn_layers": attn, "n_heads": cfg.n_heads,
             "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd,
             "block": cfg.block_size, "page_size": cfg.kv_page_size,
+            # a chunked-prefill chunk's alignment: a page, or for a
+            # diffusion model the least multiple of page and block
+            "prefill_align": math.lcm(cfg.kv_page_size, cfg.block_size)
+            if cfg.diffusion else cfg.kv_page_size,
             "itemsize": torch.empty(0, dtype=cfg.pdt).element_size()}
 
 
@@ -82,6 +109,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         t_start: float, log=print) -> dict:
     """One run; returns the result's fields (``metrics`` by name)."""
     from repro_torch.serving.clock import WallClock
+    from repro_torch.serving.telemetry import Tracer
     cfg, mix = cell.config, cell.traffic
     dev = torch.device(device)
     model = serve.build_model(cfg)
@@ -98,7 +126,9 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     preroll = mix["preroll_s"]
     arrivals = make_arrivals(mix, seed, preroll + seconds + 5.0,
                              model.cfg.vocab_size)
-    rec = serve.Record()
+    # a traced run's timed engine, and it alone, records the program's
+    # spans and counters
+    rec = serve.Record(tracer=Tracer() if trace else None)
     clock = WallClock()
     core = serve.engine(serve.BackendProbe(backend, rec, clock),
                         serve.SchedulerProbe(
@@ -140,11 +170,17 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     gc.unfreeze()
 
     shape = model_shape(model, layout, cfg)
-    r = Run(cell, arrivals, rec, w0, w1, setup_s,
-            None if g0 is None else (g0, g1), tr, shape,
-            {"warm_ticks": warm_ticks, "graphs_warm": graphs_warm,
+    extra = {"warm_ticks": warm_ticks, "graphs_warm": graphs_warm,
              "preemptions": core.preemptions,
-             "kv_pages": backend.kv.n_pages if backend.paged else None})
+             "kv_pages": backend.kv.n_pages if backend.paged else None}
+    tracer, logs = core.tracer, {}     # the timed engine's own records
+    if tracer.enabled:
+        extra["tracer_dropped"] = [tracer.dropped, tracer.spans_dropped]
+        logs = {"tick_log": [e for e in tracer.records()
+                             if e["kind"] == "tick"],
+                "span_log": tracer.span_records()}
+    r = Run(cell, arrivals, rec, w0, w1, setup_s,
+            None if g0 is None else (g0, g1), tr, shape, extra, **logs)
     wanted = cell.per_layer if trace else cell.end_to_end
     metrics = {}
     for m in wanted:
@@ -197,17 +233,20 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     return out
 
 
-def shapes_used(calls) -> dict:
+def shapes_used(calls, align: int = 1) -> dict:
     """How often each dispatch shape ran: ``decode BpxC`` and ``prefill
-    BpxTp``, each padded to the program's power-of-two buckets."""
+    BpxTp``, each padded to the program's power-of-two buckets, a prefill's
+    token axis to at least one aligned chunk (``align``), as the program
+    pads it on the card."""
     out: dict = {}
     for c in calls:
         keys = []
         if c.rows:
             keys.append(f"decode {serve._bucket(len(c.rows))}x{c.chunk}")
         if c.prefill:
+            tp = max(align, max(n for _, n in c.prefill))
             keys.append(f"prefill {serve._bucket(len(c.prefill))}x"
-                        f"{serve._bucket(max(n for _, n in c.prefill))}")
+                        f"{serve._bucket(tp)}")
         for k in keys:
             out[k] = out.get(k, 0) + 1
     return dict(sorted(out.items()))
@@ -234,7 +273,7 @@ def readings_of(r: Run) -> dict:
         "batch_mean": float(np.mean([len(c.rows) for c in calls]))
         if calls else 0.0,
         "batch_max": max((len(c.rows) for c in calls), default=0),
-        "keys": shapes_used(calls),
+        "keys": shapes_used(calls, r.shape["prefill_align"]),
         "chunks": {str(k): sum(1 for c in calls if c.chunk == k)
                    for k in sorted({c.chunk for c in calls})},
         "backlog_w0": stats.backlog(r.arrivals, r.rec.commits, r.w0),

@@ -54,9 +54,16 @@ def build_scheduler(model, cfg_json: dict, traffic: dict):
 
 
 def engine(backend, scheduler, cfg_json: dict, clock):
+    """The program's ``EngineCore``.  A probed backend whose record carries
+    the program's tracer (the timed engine of a traced run) hands it to the
+    engine, which hands it on to the backend and its graph cache; every
+    other engine keeps the null tracer."""
     from repro_torch.serving.engine import EngineCore
+    tracer = backend.rec.tracer if isinstance(backend, BackendProbe) \
+        else None
     return EngineCore(backend, scheduler,
-                      max_batch=cfg_json["serve"]["max_batch"], clock=clock)
+                      max_batch=cfg_json["serve"]["max_batch"], clock=clock,
+                      tracer=tracer)
 
 
 def request(a, dataset: str = "bench"):
@@ -101,6 +108,7 @@ class Record:
     pages: list = field(default_factory=lambda: [0, 0])
     # the KV pool's peak pages: [holding a live request's KV, that plus the
     # parked prefix pages] (paged path; after each admission and step)
+    tracer: object = None   # the program's Tracer for the timed engine
     label = None            # profiler range factory while tracing
 
     def note_pages(self, backend):

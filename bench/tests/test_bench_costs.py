@@ -57,3 +57,43 @@ def test_matmul_params_skip_embeddings_norms_and_named_leaves():
               "blocks/pos0/mixer/wq": torch.empty(2, 4, 4, device="meta"),
               "blocks/pos0/mixer/mu": torch.empty(2, 5, 4, device="meta")}
     assert costs.matmul_params(layout, ("mu",)) == 32
+
+
+def test_matmul_params_count_the_routed_experts():
+    """A stack of experts ``[layers, E, in, out]`` counts ``top_k`` of its
+    ``E``; the router and every other leaf in full."""
+    import torch
+    layout = {"blocks/pos0/ffn/router": torch.empty(2, 4, 8, device="meta"),
+              "blocks/pos0/ffn/w_up": torch.empty(2, 8, 4, 6, device="meta"),
+              "blocks/pos0/mixer/wq": torch.empty(2, 4, 4, device="meta")}
+    assert costs.matmul_params(layout) == 64 + 384 + 32
+    assert costs.matmul_params(layout, (), 8, 2) == 64 + 384 * 2 // 8 + 32
+
+
+def _shape(arch: dict) -> dict:
+    from harness import runner, serve
+    cfg = {"arch": arch}
+    model = serve.build_model(cfg)
+    return runner.model_shape(model, model.init_params(device="meta"), cfg)
+
+
+def test_model_shape_counts_a_moe_layer_by_hand():
+    """Scout's SMOKE layout (2 layers, d 64, 8 heads and 2 KV heads of 8,
+    4 experts of width 64, top-1): a layer's attention 4,096 + 1,024 +
+    1,024 + 4,096, its router 256, one expert's three products 12,288."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    arch = dataclasses.asdict(get_smoke_config("llama4-scout-17b-a16e"))
+    assert (arch["n_experts"], arch["top_k"]) == (4, 1)
+    assert _shape(arch)["params"] == 2 * (10_240 + 256 + 12_288) == 45_568
+
+
+def test_a_dense_configuration_counts_as_before():
+    """SDAR-8B: 36 layers of attention (41,943,040) and FFN (150,994,944)."""
+    import json
+
+    from harness.spec import BENCH
+    cfg = json.loads((BENCH / "configs" / "sdar-8b.json").read_text())
+    assert _shape(cfg["arch"])["params"] == 6_945_767_424 == \
+        36 * (41_943_040 + 150_994_944)

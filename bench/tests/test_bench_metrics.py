@@ -84,3 +84,14 @@ def test_a_limit_left_null_holds_nothing_correct():
     assert not verdict(cfg, res)[0]                    # no reading: fails
     assert verdict(cfg, dict(res, decision_error=0.05))[0]
     assert not verdict(cfg, dict(res, decision_error=0.2))[0]
+
+
+def test_prefill_shapes_pad_to_one_aligned_chunk():
+    """On the card the program pads a prefill's token axis to at least one
+    aligned chunk: a 16-token prefill is a ``[1, 32]`` dispatch."""
+    from harness.runner import shapes_used
+    calls = [Call(0.0, 1.0, 32, [(10, 32)] * 3, [(0, 16)], 0, 0),
+             Call(1.0, 2.0, 32, [], [(0, 448), (0, 20)], 0, 0)]
+    assert shapes_used(calls, 32) == {"decode 4x32": 1, "prefill 1x32": 1,
+                                      "prefill 2x512": 1}
+    assert "prefill 1x16" in shapes_used(calls)
